@@ -8,228 +8,65 @@
 //     q    = tanh(conv([r * h, x]; W_q) + b_q)
 //     h'   = (1 - z) * h + z * q
 // with zero padding at the image border, in f32 with f32 accumulation.
+// x is one tensor or two parts (inp, [motion | flow]), read where they lie
+// (the counterpart of gru_pallas.split_x_weights and `nparts`): the packed
+// weights' rows per tap are [h | x0 | x1], exactly the [h | x] rows.
 //
 // Bound on an H100 SXM (Sintel, B=1, 55x128 pixels, C=128, Cx=256): the six
 // 5-tap convolutions are 2 x (5*384*256 + 5*384*128) * 2 * 7040 = 20.8 GFLOP
 // of f32 FMA, 310 us at 67 TFLOP/s, against about 20 MB of compulsory
 // traffic (6 us at 3.35 TB/s). The cell is bound by f32 operations.
 //
-// Design: each convolution is an implicit GEMM, M = pixels, N = output
-// channels, K = 5 taps x (C + Cx) input channels, whose A operand is read
-// straight from the NHWC tensors with the tap's shift applied and rows that
-// fall outside the image zeroed (no im2col in memory). Weights arrive packed
-// once per model as (5 * (C + Cx), N) row-major, tap-major rows, input
-// channels in [h | x] order. A block computes a 64x64 output tile with 256
-// threads (4x4 a thread) through a double-buffered shared-memory pipeline
-// with register prefetch; the gate nonlinearities and the GRU blend run in
-// the epilogue, so z, r and q never exist as pre-activation tensors. A cell
-// is four launches: gates then candidate+blend, for each half. The gates
-// launch writes z and r*h; the candidate launch reads them back (the only
-// intermediates that touch device memory, 3 x M x C floats). This is plain
-// SIMT f32: a tensor-core (3xTF32 or bf16) path is later work.
+// Design: four phases of the shared conv tile (conv_phase.cuh) in one
+// cooperative launch: gates (z and r*h into scratch) then candidate+blend,
+// for each half. The gate nonlinearities and the blend run in the tile's
+// epilogue, so z, r and q never exist as pre-activation tensors; z, r*h and
+// the half-way state are the only intermediates (3 x M x C floats, in L2 at
+// Sintel size). This is plain SIMT f32: a tensor-core path is later work.
 
-#include <cuda_runtime.h>
+#include "conv_phase.cuh"
+
+using namespace conv_phase;
 
 namespace {
 
-constexpr int kTaps = 5;
-constexpr int BM = 64;   // pixels per tile
-constexpr int BN = 64;   // output channels per tile
-constexpr int BK = 16;   // reduction slice
-constexpr int kThreads = 256;
-constexpr int kPadA = 4;  // shared-memory row padding of the A tile
-
-struct ConvArgs {
-  const float* a_h;   // (M, C): h (gates) or r*h (candidate)
-  const float* a_x;   // (M, Cx)
-  const float* w;     // (5 * (C + Cx), N)
-  const float* bias;  // (N)
-  const float* h;     // (M, C): the state this half updates
-  const float* z;     // (M, C): update gate (candidate launch only)
-  float* out0;        // gates: z          candidate: h'
-  float* out1;        // gates: r * h      candidate: unused
-  int M, H, W, C, Cx, N;
-  int vertical;       // 0: taps move along x, 1: taps move along y
-};
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
-
-// GATES = true: N = 2C, epilogue z = sigmoid(.) for n < C and
-// r * h = sigmoid(.) * h for n >= C. GATES = false: N = C, epilogue
-// h' = (1 - z) h + z tanh(.).
-template <bool GATES>
-__global__ void __launch_bounds__(kThreads) gru_conv_kernel(const ConvArgs p) {
-  __shared__ __align__(16) float As[2][BK][BM + kPadA];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int cin = p.C + p.Cx;
-  const int ksteps = kTaps * cin / BK;
-
-  // A loader: one pixel row, four consecutive input channels of the slice.
-  const int a_row = tid >> 2;
-  const int a_k = (tid & 3) * 4;
-  const int a_m = m0 + a_row;
-  const bool a_live = a_m < p.M;
-  const int a_col = a_m % p.W;
-  const int a_y = (a_m / p.W) % p.H;
-  // B loader: one weight row, four consecutive output channels.
-  const int b_k = tid >> 4;
-  const int b_n = (tid & 15) * 4;
-
-  auto load_a = [&](int kt) -> float4 {
-    const int k0 = kt * BK;
-    const int tap = k0 / cin;
-    const int c0 = k0 - tap * cin + a_k;
-    const int d = tap - kTaps / 2;
-    bool ok = a_live;
-    int src;
-    if (p.vertical) {
-      ok = ok && a_y + d >= 0 && a_y + d < p.H;
-      src = a_m + d * p.W;
-    } else {
-      ok = ok && a_col + d >= 0 && a_col + d < p.W;
-      src = a_m + d;
-    }
-    if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* base = c0 < p.C ? p.a_h + (long long)src * p.C + c0
-                                 : p.a_x + (long long)src * p.Cx + (c0 - p.C);
-    return __ldg(reinterpret_cast<const float4*>(base));
-  };
-  auto load_b = [&](int kt) -> float4 {
-    const long long row = (long long)kt * BK + b_k;
-    return __ldg(reinterpret_cast<const float4*>(p.w + row * p.N + n0 + b_n));
-  };
-  auto store = [&](int buf, float4 av, float4 bv) {
-    As[buf][a_k + 0][a_row] = av.x;
-    As[buf][a_k + 1][a_row] = av.y;
-    As[buf][a_k + 2][a_row] = av.z;
-    As[buf][a_k + 3][a_row] = av.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = bv;
-  };
-
-  const int ty = tid >> 4;  // output rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // output cols tx*4 .. tx*4+3
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  store(0, load_a(0), load_b(0));
-  __syncthreads();
-  int buf = 0;
-  for (int kt = 0; kt < ksteps; ++kt) {
-    float4 next_a, next_b;
-    const bool more = kt + 1 < ksteps;
-    if (more) {
-      next_a = load_a(kt + 1);
-      next_b = load_b(kt + 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1, next_a, next_b);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  const int n = n0 + tx * 4;
-  const float4 bias = __ldg(reinterpret_cast<const float4*>(p.bias + n));
-  const float bb[4] = {bias.x, bias.y, bias.z, bias.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.M) break;
-    float o[4];
-    if (GATES) {
-      if (n < p.C) {  // z half (the tile lies wholly in one half)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = sigmoidf_(acc[i][j] + bb[j]);
-        *reinterpret_cast<float4*>(p.out0 + (long long)m * p.C + n) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      } else {  // r half: emit r * h
-        const int nc = n - p.C;
-        const float4 hv = __ldg(reinterpret_cast<const float4*>(p.h + (long long)m * p.C + nc));
-        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = sigmoidf_(acc[i][j] + bb[j]) * hr[j];
-        *reinterpret_cast<float4*>(p.out1 + (long long)m * p.C + nc) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      }
-    } else {
-      const long long at = (long long)m * p.C + n;
-      const float4 hv = __ldg(reinterpret_cast<const float4*>(p.h + at));
-      const float4 zv = __ldg(reinterpret_cast<const float4*>(p.z + at));
-      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float zr[4] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float q = tanhf(acc[i][j] + bb[j]);
-        o[j] = (1.f - zr[j]) * hr[j] + zr[j] * q;
-      }
-      *reinterpret_cast<float4*>(p.out0 + at) = make_float4(o[0], o[1], o[2], o[3]);
-    }
-  }
-}
-
-cudaError_t half_step(const float* h, const float* x, const float* w_zr, const float* b_zr,
-                      const float* w_q, const float* b_q, float* z, float* rh, float* h_out,
-                      int M, int H, int W, int C, int Cx, int vertical, cudaStream_t s) {
-  ConvArgs g{h, x, w_zr, b_zr, h, nullptr, z, rh, M, H, W, C, Cx, 2 * C, vertical};
-  const dim3 grid_g((M + BM - 1) / BM, 2 * C / BN);
-  gru_conv_kernel<true><<<grid_g, kThreads, 0, s>>>(g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ConvArgs q{rh, x, w_q, b_q, h, z, h_out, nullptr, M, H, W, C, Cx, C, vertical};
-  const dim3 grid_q((M + BM - 1) / BM, C / BN);
-  gru_conv_kernel<false><<<grid_q, kThreads, 0, s>>>(q);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads, 2) sepconv_gru_kernel(const __grid_constant__ Program p) {
+  run_program(p);
 }
 
 }  // namespace
 
-// h (B, H, W, C) and x (B, H, W, Cx), NHWC float32, contiguous and 16-byte
-// aligned; weights packed per half as w_zr (5 (C+Cx), 2C), b_zr (2C),
-// w_q (5 (C+Cx), C), b_q (C). Scratch h1, z, rh and the result out are
-// (B, H, W, C). C must be a multiple of 64 and Cx of 16.
-// Returns a cudaError_t (0 on success); launches on `stream`.
-extern "C" int raft_sepconv_gru(const void* h, const void* x, const void* w_zr1,
-                                const void* b_zr1, const void* w_q1, const void* b_q1,
-                                const void* w_zr2, const void* b_zr2, const void* w_q2,
-                                const void* b_q2, void* h1, void* z, void* rh, void* out,
-                                int batch, int height, int width, int channels,
-                                int x_channels, void* stream) {
-  if (channels <= 0 || channels % BN != 0 || x_channels <= 0 || x_channels % BK != 0 ||
-      batch < 0 || height < 0 || width < 0) {
+// h (B, H, W, C) and the x parts x0 (B, H, W, Cx0) and x1 (B, H, W, Cx1)
+// (x1 null and Cx1 = 0 for a single x), NHWC float32, contiguous and
+// 16-byte aligned; weights packed per half as w_zr (5 (C+Cx), 2C), b_zr
+// (2C), w_q (5 (C+Cx), C), b_q (C). Scratch h1, z, rh and the result out
+// are (B, H, W, C). C must be a multiple of 64, each Cx of 16.
+// Returns a cudaError_t (0 on success); one cooperative launch on `stream`.
+extern "C" int raft_sepconv_gru(const void* h, const void* x0, const void* x1,
+                                const void* w_zr1, const void* b_zr1, const void* w_q1,
+                                const void* b_q1, const void* w_zr2, const void* b_zr2,
+                                const void* w_q2, const void* b_q2, void* h1, void* z, void* rh,
+                                void* out, int batch, int height, int width, int channels,
+                                int x0_channels, int x1_channels, void* stream) {
+  const bool x1_ok = x1_channels == 0 ? x1 == nullptr
+                                      : x1 != nullptr && x1_channels > 0 && x1_channels % BK == 0;
+  if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % BK != 0 ||
+      !x1_ok || !valid_geometry(batch, height, width)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long m = (long long)batch * height * width;
-  if (m == 0) return 0;
-  if (m > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  const int M = (int)m;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xx = static_cast<const float*>(x);
-  float* zz = static_cast<float*>(z);
-  float* rr = static_cast<float*>(rh);
-  cudaError_t err = half_step(static_cast<const float*>(h), xx, static_cast<const float*>(w_zr1),
-                              static_cast<const float*>(b_zr1), static_cast<const float*>(w_q1),
-                              static_cast<const float*>(b_q1), zz, rr, static_cast<float*>(h1),
-                              M, height, width, channels, x_channels, 0, s);
-  if (err != cudaSuccess) return (int)err;
-  err = half_step(static_cast<const float*>(h1), xx, static_cast<const float*>(w_zr2),
-                  static_cast<const float*>(b_zr2), static_cast<const float*>(w_q2),
-                  static_cast<const float*>(b_q2), zz, rr, static_cast<float*>(out), M,
-                  height, width, channels, x_channels, 1, s);
-  return (int)err;
+  Program p{};
+  p.M = batch * height * width;
+  p.H = height;
+  p.W = width;
+  if (p.M == 0) return 0;
+  const float* xs[2] = {static_cast<const float*>(x0), static_cast<const float*>(x1)};
+  const int cxs[2] = {x0_channels, x1_channels};
+  const GruWeights gw{static_cast<const float*>(w_zr1), static_cast<const float*>(b_zr1),
+                      static_cast<const float*>(w_q1),  static_cast<const float*>(b_q1),
+                      static_cast<const float*>(w_zr2), static_cast<const float*>(b_zr2),
+                      static_cast<const float*>(w_q2),  static_cast<const float*>(b_q2)};
+  add_gru_phases(p, static_cast<const float*>(h), channels, xs, cxs, x1 ? 2 : 1, gw,
+                 static_cast<float*>(z), static_cast<float*>(rh), static_cast<float*>(h1),
+                 static_cast<float*>(out));
+  return (int)launch_program(sepconv_gru_kernel, p, static_cast<cudaStream_t>(stream));
 }

@@ -25,6 +25,7 @@ import torch
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.data import frame_utils
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.models.update import UPDATE_IMPLS
 from raft_tpu_torch.weights import load_npz
 
 ASSETS_DIR = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
@@ -63,14 +64,21 @@ class FlowPredictor:
         ``"fixed"`` uses ``model.config.alternate_corr`` as given. The
         engine depends on the device, not the image shape: PyTorch runs
         eagerly, so there is no per-shape executable to keep.
+      update_impl: ``"step"`` (default) runs each refine iteration as one
+        launch of the step kernel; ``"chain"`` runs the motion kernel and
+        then the GRU kernel (the counterpart of ``RAFT_STEP_PALLAS=auto``
+        and ``=0``). On the CPU both run the plain versions.
     """
 
     def __init__(self, model: RAFT, iters: int = 32,
                  batch_size: Optional[int] = None, device=None,
-                 corr_impl: str = "auto"):
+                 corr_impl: str = "auto", update_impl: str = "step"):
         if corr_impl not in ("fixed", "auto"):
             raise ValueError(f"corr_impl must be 'fixed' or 'auto', "
                              f"got {corr_impl!r}")
+        if update_impl not in UPDATE_IMPLS:
+            raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
+                             f"got {update_impl!r}")
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         batch_size = 1 if batch_size is None else batch_size
@@ -82,6 +90,7 @@ class FlowPredictor:
         self.model = model.to(self.device).eval()
         self.iters = iters
         self.batch_size = batch_size
+        self.update_impl = update_impl
         self.alternate_corr = (self.device.type == "cuda"
                                if corr_impl == "auto"
                                else model.config.alternate_corr)
@@ -96,7 +105,8 @@ class FlowPredictor:
         with torch.inference_mode():
             low, up = self.model(put(images1), put(images2),
                                  iters=self.iters,
-                                 alternate_corr=self.alternate_corr)
+                                 alternate_corr=self.alternate_corr,
+                                 update_impl=self.update_impl)
             return low.cpu().numpy(), up.cpu().numpy()
 
     def __call__(self, image1: np.ndarray, image2: np.ndarray):
@@ -189,7 +199,7 @@ def validate_golden(predictor: FlowPredictor, root=None) -> Dict[str, float]:
 def load_predictor(model_path: str, iters: int = 32,
                    alternate_corr: bool = False,
                    corr_impl: Optional[str] = None,
-                   device=None) -> FlowPredictor:
+                   device=None, update_impl: str = "step") -> FlowPredictor:
     """A :class:`FlowPredictor` for RAFT-large from a torch-named ``.npz``
     archive. ``corr_impl=None`` means ``"auto"``, or ``"fixed"`` when
     ``alternate_corr`` asks for an engine explicitly."""
@@ -201,7 +211,7 @@ def load_predictor(model_path: str, iters: int = 32,
     model = RAFT(RAFTConfig(alternate_corr=alternate_corr))
     model.load_state_dict(load_npz(model_path))
     return FlowPredictor(model, iters=iters, device=device,
-                         corr_impl=corr_impl)
+                         corr_impl=corr_impl, update_impl=update_impl)
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -216,13 +226,18 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--alternate_corr", action="store_true")
     parser.add_argument("--corr_impl", default=None,
                         choices=["fixed", "auto"])
+    parser.add_argument("--update_impl", default="step",
+                        choices=list(UPDATE_IMPLS),
+                        help="refine iteration: one step-kernel launch "
+                             "(default) or the motion then GRU kernels")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     predictor = load_predictor(args.model, iters=args.iters,
                                alternate_corr=args.alternate_corr,
                                corr_impl=args.corr_impl,
-                               device=args.device)
+                               device=args.device,
+                               update_impl=args.update_impl)
     return validate_golden(predictor)
 
 

@@ -5,6 +5,9 @@ Images in [0, 255] NHWC; both go through ``fnet`` in one pass (batch
 concatenation), ``cnet`` splits into the tanh hidden state and the ReLU
 context. Then ``iters - 1`` refinement iterations without the mask head and
 one final iteration with it, whose mask drives the convex 8x upsampling.
+On the card each iteration is one launch of the step kernel
+(``ops/step_cuda.py``) after the lookup, or, with ``update_impl="chain"``,
+the motion kernel followed by the GRU kernel.
 The correlation engine is the materialised all-pairs pyramid or the
 on-demand lookup (``alternate_corr``), whose CUDA path is the kernel of
 ``ops/corr_cuda.py``.
@@ -48,10 +51,13 @@ class RAFT(nn.Module):
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: Optional[int] = None,
                 flow_init: Optional[torch.Tensor] = None,
-                alternate_corr: Optional[bool] = None):
+                alternate_corr: Optional[bool] = None,
+                update_impl: str = "step"):
         """``image1``/``image2`` (B, H, W, 3) in [0, 255]; ``flow_init``
         (B, H/8, W/8, 2) or None; ``alternate_corr`` overrides the config's
-        engine. Returns ``(flow_low (B, H/8, W/8, 2), flow_up (B, H, W, 2))``.
+        engine; ``update_impl`` picks the refine iteration's kernels
+        (``BasicUpdateBlock.forward``). Returns ``(flow_low (B, H/8, W/8,
+        2), flow_up (B, H, W, 2))``.
         """
         cfg = self.config
         iters = cfg.iters if iters is None else iters
@@ -80,7 +86,8 @@ class RAFT(nn.Module):
             corr = corr_fn(coords1)
             flow = coords1 - coords0
             net, mask, delta_flow = self.update_block(
-                net, inp, corr, flow, compute_mask=True if last else None)
+                net, inp, corr, flow, compute_mask=True if last else None,
+                update_impl=update_impl)
             coords1 = coords1 + delta_flow
         flow_low = coords1 - coords0
         return flow_low, convex_upsample(flow_low, mask)

@@ -2,12 +2,15 @@
 ``raft_tpu/models/update.py`` (``FlowHead``, ``SepConvGRU``,
 ``BasicMotionEncoder``, ``BasicUpdateBlock``).
 
-Every module takes and returns NHWC tensors, as its counterpart does. The
-convolutions run as ``nn.Conv2d`` on an NCHW view of that memory (channels
-last). ``SepConvGRU`` is the exception: it hands its weights to
-``ops/gru_cuda.py``, the CUDA kernel on a CUDA tensor and its plain version
-on the CPU. Attribute names follow the torch state-dict keys
-(``update_block.gru.convz1``, ``update_block.mask.0`` ...).
+Every module takes and returns NHWC tensors, as its counterpart does.
+``BasicMotionEncoder`` and ``SepConvGRU`` hand their weights to
+``ops/motion_cuda.py`` and ``ops/gru_cuda.py``, and ``BasicUpdateBlock``
+the weights of all three modules to ``ops/step_cuda.py``: the CUDA kernel
+on a CUDA tensor, its plain version on the CPU. The remaining convolutions
+(the flow head outside the step kernel, the mask head) run as
+``nn.Conv2d`` on an NCHW view of the NHWC memory. Attribute names follow
+the torch state-dict keys (``update_block.gru.convz1``,
+``update_block.mask.0`` ...).
 """
 
 from __future__ import annotations
@@ -15,15 +18,34 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from raft_tpu_torch.ops import gru_cuda
+from raft_tpu_torch.ops import gru_cuda, motion_cuda, step_cuda
 
 # Convex-upsampling mask channels: 9 neighbours x (8x8) sub-pixels.
 UPSAMPLE_MASK_CHANNELS = 9 * 8 * 8
+# BasicUpdateBlock.forward's choice of refine iteration, the counterpart of
+# RAFT_STEP_PALLAS=auto|0: one launch of the step kernel, or the motion
+# kernel followed by the GRU kernel.
+UPDATE_IMPLS = ("step", "chain")
 
 
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW module to an NHWC tensor; returns NHWC."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def conv_pairs(*convs: nn.Conv2d) -> tuple:
+    return tuple((c.weight, c.bias) for c in convs)
+
+
+def packed_weights(module: nn.Module, pack) -> tuple:
+    """``pack(module.convs())``, the layout a kernel reads, kept on the
+    module and repacked only when a parameter was replaced or written since
+    the last call (a new state dict, a move to another device)."""
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    cached = getattr(module, "_packed", None)
+    if cached is None or cached[0] != key:
+        cached = module._packed = (key, pack(module.convs()))
+    return cached[1]
 
 
 class FlowHead(nn.Module):
@@ -34,6 +56,12 @@ class FlowHead(nn.Module):
         self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
         self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
         self.relu = nn.ReLU(inplace=True)
+
+    def convs(self) -> tuple:
+        return conv_pairs(self.conv1, self.conv2)
+
+    def packed_weights(self) -> tuple:
+        return packed_weights(self, step_cuda.pack_flow_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(lambda t: self.conv2(self.relu(self.conv1(t))), x)
@@ -51,24 +79,17 @@ class SepConvGRU(nn.Module):
         self.convz2 = nn.Conv2d(cin, hidden_dim, (5, 1), padding=(2, 0))
         self.convr2 = nn.Conv2d(cin, hidden_dim, (5, 1), padding=(2, 0))
         self.convq2 = nn.Conv2d(cin, hidden_dim, (5, 1), padding=(2, 0))
-        self._packed = None     # (key, packed weights) for the CUDA kernel
 
     def convs(self) -> tuple:
-        return tuple((c.weight, c.bias) for c in (
-            self.convz1, self.convr1, self.convq1,
-            self.convz2, self.convr2, self.convq2))
+        return conv_pairs(self.convz1, self.convr1, self.convq1,
+                          self.convz2, self.convr2, self.convq2)
 
     def packed_weights(self) -> tuple:
-        """The kernel's packed weights, repacked only when a parameter was
-        replaced or written since the last call (a new state dict, a move to
-        another device)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, gru_cuda.pack_weights(self.convs()))
-        return self._packed[1]
+        return packed_weights(self, gru_cuda.pack_weights)
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """``h`` (B, H, W, C), ``x`` (B, H, W, Cx), contiguous NHWC."""
+    def forward(self, h: torch.Tensor, x) -> torch.Tensor:
+        """``h`` (B, H, W, C) and ``x`` (B, H, W, Cx) or a tuple of parts,
+        contiguous NHWC."""
         return gru_cuda.sepconv_gru(h, x, self.convs(), self.packed_weights())
 
 
@@ -83,13 +104,16 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
+    def convs(self) -> tuple:
+        return conv_pairs(self.convc1, self.convc2, self.convf1, self.convf2,
+                          self.conv)
+
+    def packed_weights(self) -> tuple:
+        return packed_weights(self, motion_cuda.pack_weights)
+
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        relu = torch.relu
-        flo_c = flow.permute(0, 3, 1, 2)
-        cor = relu(self.convc2(relu(self.convc1(corr.permute(0, 3, 1, 2)))))
-        flo = relu(self.convf2(relu(self.convf1(flo_c))))
-        out = relu(self.conv(torch.cat([cor, flo], dim=1)))
-        return torch.cat([out, flo_c], dim=1).permute(0, 2, 3, 1)
+        return motion_cuda.motion_encoder(flow.contiguous(), corr.contiguous(),
+                                          self.convs(), self.packed_weights())
 
 
 class BasicUpdateBlock(nn.Module):
@@ -107,14 +131,35 @@ class BasicUpdateBlock(nn.Module):
             nn.ReLU(inplace=True),
             nn.Conv2d(256, UPSAMPLE_MASK_CHANNELS, 1))
 
-    def forward(self, net, inp, corr, flow, compute_mask=True):
+    def forward(self, net, inp, corr, flow, compute_mask=True,
+                update_impl: str = "step"):
         """NHWC ``net`` (B,H,W,hdim), ``inp`` (B,H,W,cdim), ``corr``
         (B,H,W,L(2r+1)^2), ``flow`` (B,H,W,2). ``compute_mask=None`` skips
-        the mask head (the non-final test-mode iterations). Returns
-        ``(net, mask or None, delta_flow)``."""
-        motion_features = self.encoder(flow, corr)
-        x = torch.cat([inp, motion_features], dim=-1).contiguous()
-        net = self.gru(net.contiguous(), x)
+        the mask head (the non-final test-mode iterations). ``update_impl``
+        ``"step"`` runs one step kernel (with the flow head inside it when
+        the mask head is skipped, ``step_cuda.plan_fusion``); ``"chain"``
+        runs the motion kernel, then the GRU kernel with x = (inp,
+        motion). Returns ``(net, mask or None, delta_flow)``."""
+        net, inp = net.contiguous(), inp.contiguous()
+        if update_impl == "step":
+            with_head = step_cuda.plan_fusion(compute_mask is None) == "mgf"
+            convs = [self.encoder.convs(), self.gru.convs(), None]
+            packed = [self.encoder.packed_weights(),
+                      self.gru.packed_weights(), None]
+            if with_head:
+                convs[2] = self.flow_head.convs()
+                packed[2] = self.flow_head.packed_weights()
+            out = step_cuda.fused_step(net, inp, corr.contiguous(),
+                                       flow.contiguous(), convs, packed)
+            if with_head:
+                net, delta_flow = out
+                return net, None, delta_flow
+            net = out
+        elif update_impl == "chain":
+            net = self.gru(net, (inp, self.encoder(flow, corr)))
+        else:
+            raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
+                             f"got {update_impl!r}")
         delta_flow = self.flow_head(net)
         if compute_mask is None:
             return net, None, delta_flow

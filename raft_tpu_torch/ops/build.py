@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``build/raft_tpu_torch/``
 at the repository root and loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds. The library's file name carries a hash of its source
-and flags, so an edited source is never served by a stale build. Like
+build takes seconds. The library's file name carries a hash of its source,
+the headers of ``csrc/`` and the flags, so an edited source or header is
+never served by a stale build. Like
 ``raft_tpu/native/build.py`` the compiler writes to a temporary file that is
 renamed into place, and a failed build raises with the compiler's output.
 Nothing here runs at import time.
@@ -23,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
-KERNELS = ("corr_fwd", "sepconv_gru")
+KERNELS = ("corr_fwd", "sepconv_gru", "motion_fwd", "update_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,9 +47,14 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    """Where the library for ``csrc/<name>.cu`` lives once built."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for ``csrc/<name>.cu`` lives once built: named by
+    a hash of the source, every header in ``csrc/`` (a source may include
+    any of them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

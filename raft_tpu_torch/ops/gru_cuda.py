@@ -1,19 +1,22 @@
 """SepConvGRU cell: the CUDA kernel and its plain version.
 
-Counterpart of ``raft_tpu/ops/gru_pallas.py`` for a single x tensor: the
-horizontal (1x5) GRU step, then the vertical (5x1) one, each
+Counterpart of ``raft_tpu/ops/gru_pallas.py``: the horizontal (1x5) GRU
+step, then the vertical (5x1) one, each
 
     z = sigmoid(convz([h, x]))    r = sigmoid(convr([h, x]))
     q = tanh(convq([r * h, x]))   h' = (1 - z) * h + z * q
 
-with zero padding at the image border, in float32. ``h`` (B, H, W, C) and
-``x`` (B, H, W, Cx) are NHWC. ``convs`` are the six ``(weight, bias)`` pairs
-of the module in torch layout, ordered (z1, r1, q1, z2, r2, q2).
+with zero padding at the image border, in float32. ``h`` (B, H, W, C) is
+NHWC; ``x`` is one NHWC tensor (B, H, W, Cx) or a tuple of two parts, such
+as ``(inp, [motion | flow])``, whose channels make up x in order (the
+counterpart of ``gru_pallas.split_x_weights``). ``convs`` are the six
+``(weight, bias)`` pairs of the module in torch layout, ordered (z1, r1,
+q1, z2, r2, q2).
 
 ``sepconv_gru`` is the entry point: a tensor on the CPU goes to the plain
 ``F.conv2d`` version, a CUDA tensor to the kernel in ``csrc/sepconv_gru.cu``
-(four launches of its own per cell, counted once in ``launches``), which
-takes the weights packed once by ``pack_weights``.
+(one launch per cell, counted in ``launches``), which takes the weights
+packed once by ``pack_weights`` and reads the x parts where they lie.
 """
 
 from __future__ import annotations
@@ -39,9 +42,15 @@ def _step_plain(h, x, conv_z, conv_r, conv_q, padding):
     return (1 - z) * h + z * q
 
 
-def sepconv_gru_plain(h: torch.Tensor, x: torch.Tensor, convs) -> torch.Tensor:
-    """The cell with ``F.conv2d``, NHWC in and out."""
+def _parts(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def sepconv_gru_plain(h: torch.Tensor, x, convs) -> torch.Tensor:
+    """The cell with ``F.conv2d``, NHWC in and out; x parts are
+    concatenated."""
     h = h.permute(0, 3, 1, 2)
+    x = torch.cat(_parts(x), dim=-1)
     x = x.permute(0, 3, 1, 2)
     h = _step_plain(h, x, *convs[:3], padding=(0, 2))
     h = _step_plain(h, x, *convs[3:], padding=(2, 0))
@@ -52,7 +61,8 @@ def pack_weights(convs) -> tuple:
     """The kernel's weight layout, per half: ``w_zr`` (5 (C+Cx), 2C) with
     the z and r convs merged on the output axis, ``b_zr`` (2C), ``w_q``
     (5 (C+Cx), C), ``b_q`` (C). Rows are tap-major, input channels in
-    ``[h | x]`` order. Returns the 8 contiguous float32 tensors
+    ``[h | x]`` order, which are also the ``[h | x0 | x1]`` rows of the
+    parts form. Returns the 8 contiguous float32 tensors
     (w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2, b_q2)."""
     def taps(w):                                  # (Cout, Cin, 1|5, 5|1)
         return w.reshape(w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
@@ -65,47 +75,60 @@ def pack_weights(convs) -> tuple:
     return tuple(t.detach().float().contiguous() for t in packed)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def check_packed(packed, k: int, c: int, device) -> None:
+    """Raise unless ``packed`` is ``pack_weights`` output with K = ``k``
+    rows (5 taps x (C + Cx)) and C = ``c``, on ``device``."""
+    shapes = [(k, 2 * c), (2 * c,), (k, c), (c,)] * 2
+    if len(packed) != len(shapes):
+        raise ValueError(f"expected {len(shapes)} packed GRU tensors, "
+                         f"got {len(packed)}")
+    for n, (t, s) in enumerate(zip(packed, shapes)):
+        check_operand(f"GRU packed[{n}]", t, s, device)
 
 
-def sepconv_gru_cuda(h: torch.Tensor, x: torch.Tensor, packed) -> torch.Tensor:
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def sepconv_gru_cuda(h: torch.Tensor, x, packed) -> torch.Tensor:
     """Launch the kernel of ``csrc/sepconv_gru.cu`` on the current stream.
 
-    ``h`` (B, H, W, C) and ``x`` (B, H, W, Cx): float32, contiguous, on one
-    CUDA device, C a multiple of 64 and Cx of 16. ``packed`` is
-    ``pack_weights`` output on the same device. Returns h' (B, H, W, C).
+    ``h`` (B, H, W, C) and ``x``, one tensor (B, H, W, Cx) or two parts:
+    float32, contiguous, on one CUDA device, C a multiple of 64 and each
+    part's channels of 16. ``packed`` is ``pack_weights`` output on the
+    same device. Returns h' (B, H, W, C).
     """
     global launches
     if h.device.type != "cuda":
         raise ValueError(f"the GRU kernel needs CUDA tensors, got {h.device}")
     B, H, W, C = h.shape
-    cx = x.shape[-1]
-    if C % 64 or cx % 16:
-        raise ValueError(f"C must be a multiple of 64 and Cx of 16, "
-                         f"got C={C}, Cx={cx}")
+    xs = _parts(x)
+    cxs = [p.shape[-1] for p in xs]
+    if len(xs) > 2 or C % 64 or any(cx % 16 for cx in cxs):
+        raise ValueError(f"C must be a multiple of 64 and x one or two parts "
+                         f"of a multiple of 16 channels, got C={C}, "
+                         f"x parts {cxs}")
     dev = h.device
     check_operand("h", h, (B, H, W, C), dev)
-    check_operand("x", x, (B, H, W, cx), dev)
-    k = TAPS * (C + cx)
-    shapes = [(k, 2 * C), (2 * C,), (k, C), (C,)] * 2
-    for n, (t, s) in enumerate(zip(packed, shapes)):
-        check_operand(f"packed[{n}]", t, s, dev)
+    for n, p in enumerate(xs):
+        check_operand(f"x part {n}", p, (B, H, W, cxs[n]), dev)
+    check_packed(packed, TAPS * (C + sum(cxs)), C, dev)
     out = torch.empty_like(h)
     h1, z, rh = (torch.empty_like(h) for _ in range(3))
+    x1, cx1 = (xs[1].data_ptr(), cxs[1]) if len(xs) == 2 else (None, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = build.bind("sepconv_gru", "raft_sepconv_gru", _ARGTYPES)(
-            h.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in packed],
+            h.data_ptr(), xs[0].data_ptr(), x1,
+            *[t.data_ptr() for t in packed],
             h1.data_ptr(), z.data_ptr(), rh.data_ptr(), out.data_ptr(),
-            B, H, W, C, cx, stream)
+            B, H, W, C, cxs[0], cx1, stream)
     if err:
         raise RuntimeError(f"sepconv_gru kernel failed: cudaError {err}")
     launches += 1
     return out
 
 
-def sepconv_gru(h: torch.Tensor, x: torch.Tensor, convs,
-                packed) -> torch.Tensor:
+def sepconv_gru(h: torch.Tensor, x, convs, packed) -> torch.Tensor:
     """One SepConvGRU cell: the plain version (``convs``) for a CPU tensor,
     the CUDA kernel (``packed``, from ``pack_weights(convs)``) for a CUDA
     tensor."""

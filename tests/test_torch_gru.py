@@ -185,3 +185,23 @@ def test_kernel_matches_plain_on_card(cuda, hw, monkeypatch):
         want = gru_cuda.sepconv_gru_plain(hid, x, module.convs())
     assert gru_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(24, 32), (55, 128)])
+def test_parts_kernel_matches_plain_on_card(cuda, hw, monkeypatch):
+    """The kernel's parts form, x = (inp, [motion | flow]) read where the
+    parts lie, against the plain version (which concatenates). Bar 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(4)
+    h, w = hw
+    module = SepConvGRU(128, 256).to(cuda)
+    hid = _t(np.tanh(rng.standard_normal((1, h, w, 128)))).to(cuda)
+    inp = _t(np.maximum(rng.standard_normal((1, h, w, 128)), 0)).to(cuda)
+    mot = _t(rng.standard_normal((1, h, w, 128))).to(cuda)
+    before = gru_cuda.launches
+    with torch.inference_mode():
+        got = module(hid, (inp, mot))
+        want = gru_cuda.sepconv_gru_plain(hid, (inp, mot), module.convs())
+    assert gru_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

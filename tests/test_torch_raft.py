@@ -160,26 +160,66 @@ def test_update_block_matches_jax(update_setup, compute_mask):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("alternate_corr", [False, True])
-def test_raft_matches_jax(npz_state, port_model, frames, alternate_corr):
-    """The whole test-mode forward at 64x96, iters=3, through each engine;
-    the on-demand engine also starts from a non-zero flow_init."""
+@pytest.fixture(scope="module")
+def jax_flows(npz_state, frames):
+    """The JAX RAFT's test-mode flows at 64x96, iters=3, for one engine
+    (the on-demand one from a non-zero flow_init): ``(init, low, up)``,
+    computed once per engine for this file."""
+    cache = {}
+
+    def run(alternate_corr):
+        if alternate_corr not in cache:
+            img1, img2 = frames
+            init = (np.random.default_rng(4).uniform(-2, 2, (1, 8, 12, 2))
+                    .astype(np.float32) if alternate_corr else None)
+            jmodel = JaxRAFT(JaxRAFTConfig(alternate_corr=alternate_corr))
+            jlow, jup = jmodel.apply(
+                convert_state_dict(npz_state), jnp.asarray(img1),
+                jnp.asarray(img2), iters=3, test_mode=True,
+                flow_init=None if init is None else jnp.asarray(init))
+            cache[alternate_corr] = (init, np.asarray(jlow), np.asarray(jup))
+        return cache[alternate_corr]
+    return run
+
+
+def _check_raft(port_model, frames, jax_flows, alternate_corr, update_impl):
     img1, img2 = frames
-    init = (np.random.default_rng(4).uniform(-2, 2, (1, 8, 12, 2))
-            .astype(np.float32) if alternate_corr else None)
-    jmodel = JaxRAFT(JaxRAFTConfig(alternate_corr=alternate_corr))
-    jlow, jup = jmodel.apply(
-        convert_state_dict(npz_state), jnp.asarray(img1), jnp.asarray(img2),
-        iters=3, test_mode=True,
-        flow_init=None if init is None else jnp.asarray(init))
+    init, jlow, jup = jax_flows(alternate_corr)
     with torch.inference_mode():
         low, up = port_model(_t(img1), _t(img2), iters=3,
                              flow_init=None if init is None else _t(init),
-                             alternate_corr=alternate_corr)
+                             alternate_corr=alternate_corr,
+                             update_impl=update_impl)
     assert low.shape == (1, 8, 12, 2) and up.shape == (1, 64, 96, 2)
-    np.testing.assert_allclose(low.numpy(), np.asarray(jlow), atol=TOL,
-                               rtol=0)
-    np.testing.assert_allclose(up.numpy(), np.asarray(jup), atol=TOL, rtol=0)
+    np.testing.assert_allclose(low.numpy(), jlow, atol=TOL, rtol=0)
+    np.testing.assert_allclose(up.numpy(), jup, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("alternate_corr", [False, True])
+def test_raft_matches_jax(port_model, frames, jax_flows, alternate_corr):
+    """The whole test-mode forward at 64x96, iters=3, through each engine
+    and the default update path (one step-kernel call per iteration); the
+    on-demand engine also starts from a non-zero flow_init."""
+    _check_raft(port_model, frames, jax_flows, alternate_corr, "step")
+
+
+@pytest.mark.parametrize("alternate_corr", [False, True])
+def test_raft_chain_matches_jax(port_model, frames, jax_flows,
+                                alternate_corr):
+    """The same through the other update path: the motion encoder, then
+    the GRU with x as parts, then the heads."""
+    _check_raft(port_model, frames, jax_flows, alternate_corr, "chain")
+
+
+def test_unknown_update_impl_is_refused(port_model, update_setup):
+    with pytest.raises(ValueError, match="update_impl"):
+        evaluate.FlowPredictor(port_model, device="cpu", update_impl="fused")
+    _, _, block, _, arrays = update_setup
+    with pytest.raises(ValueError, match="update_impl"):
+        block(*(_t(a) for a in arrays), update_impl="conv")
+    with pytest.raises(SystemExit):
+        evaluate.main(["--model", WEIGHTS, "--dataset", "golden",
+                       "--device", "cpu", "--update_impl", "fused"])
 
 
 def test_golden_on_cpu_via_cli(capsys):
