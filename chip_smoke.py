@@ -5,23 +5,31 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the port's five CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` each, all at once), holds each kernel against its plain PyTorch
 version at the golden and Sintel feature shapes (the GRU with x whole and
-as parts, the step kernel at both depths), checks RAFT-large against the
+as parts, the step kernel at both depths, the corr backward against
+autograd through the plain lookup), checks RAFT-large against the
 committed goldens through three routes (on-demand correlation with the
 step kernel, with the motion and GRU kernels, and the all-pairs engine),
 serves five Sintel-size pairs (436x1024, iters=32) on the default path and
 two on the ``update_impl="chain"`` path through the port's
-``FlowPredictor`` while counting kernel launches, times each kernel beside
-its plain version, its bound and a cuDNN yardstick where one exists,
-profiles one pair, and prints one JSON line of kernel numbers. The last
-line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
-before that line; without a CUDA card it exits non-zero at once.
+``FlowPredictor``, holds one train step through the kernels against the
+same step through the plain versions (B=2, 184x248, iters=4), trains
+RAFT-large for 7 steps at the chairs defaults (B=8, 368x496, iters=12)
+through the port's ``train`` on synthetic batches, counting kernel launches
+on every path, times each kernel beside its plain version, its bound and a
+cuDNN yardstick where one exists, profiles one Sintel pair and one train
+step, and prints one JSON line of kernel numbers. The last line is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line; without a CUDA card it exits non-zero at once.
 """
 
+import contextlib
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -38,6 +46,31 @@ SINTEL_ITERS = 32
 SERVE_PAIRS = 5
 CHAIN_PAIRS = 2
 TIMED_LAUNCHES = 30
+# The train phase: chairs defaults (TrainConfig), 2 warm-up and 5 timed
+# steps; the kernel-vs-plain train step at a size the plain lookup holds.
+TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (368, 496), 12
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+CMP_B, CMP_HW, CMP_ITERS = 2, (184, 248), 4
+LOSS_REL, NORM_REL, PARAM_BAR, BN_BAR = 1e-5, 1e-4, 1e-6, 1e-5
+GRAD_REL = 1e-4               # per parameter, of its largest plain gradient
+# The two routes' gradients are compared against the plain route's own
+# spread: between two plain runs (the lookup's gradient is summed with float
+# atomics in no fixed order on both routes), and between the plain run and
+# one whose lookup and step outputs are moved by PERTURB relative noise,
+# the scale of the kernels' own difference from the plain versions
+# (corr_fwd up to 2e-5 on values of order 1, update_step 1.5e-6; ReLUs near
+# 0, the L1 loss's sign and sums that nearly cancel turn such differences
+# into larger ones in some gradients). A check passes within SPREAD_MARGIN
+# times that spread, or its fixed bar where that is larger.
+PERTURB = 1e-5
+SPREAD_MARGIN = 4.0
+# Adam's first update is lr * g / (|g| + eps), eps = 1e-8: where a gradient
+# entry is within a few eps of zero, float rounding of g flips or scales
+# the update by up to 2 lr. PARAM_BAR applies to the entries whose plain
+# gradient is above ADAM_EXACT = 10 eps; the others are held to 2 lr.
+ADAM_EXACT = 1e-7
+CORR_BWD_REL = 1e-4           # max|kernel - plain| / max|plain|
+DEVICE = "cuda"               # the train helpers' device
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth.
 F32_FLOPS = 67e12
@@ -92,12 +125,10 @@ def corr_inputs(torch, sampling, corr, rng, h, w, c=256, levels=4):
     return f1, pyramid, coords.contiguous()
 
 
-def corr_work(torch, f1, pyramid, coords, radius):
-    """Operations and bytes of one lookup on these inputs: a dot product
-    of C channels for each in-range integer neighbour, 8 operations for
-    each bilinear output; every input read once, the output written once."""
-    _, h, w, c = f1.shape
-    win = 2 * radius + 1
+def in_range_neighbours(torch, pyramid, coords, radius):
+    """In-range integer neighbours of every query's (2r+2)^2 grid, summed
+    over the levels: the dot products the corr kernels do on these
+    inputs."""
     steps = torch.arange(2 * radius + 2, device=coords.device)
     neighbours = 0
     for lvl, f2 in enumerate(pyramid):
@@ -107,10 +138,36 @@ def corr_work(torch, f1, pyramid, coords, radius):
         nx = ((xs >= 0) & (xs < f2.shape[2])).sum(-1)
         ny = ((ys >= 0) & (ys < f2.shape[1])).sum(-1)
         neighbours += int((nx * ny).sum())
-    outputs = h * w * len(pyramid) * win * win
-    flops = 2 * c * neighbours + 8 * outputs
+    return neighbours
+
+
+def corr_work(torch, f1, pyramid, coords, radius):
+    """Operations and bytes of one lookup on these inputs: a dot product
+    of C channels for each in-range integer neighbour, 8 operations for
+    each bilinear output; every input read once, the output written once."""
+    b, h, w, c = f1.shape
+    win = 2 * radius + 1
+    outputs = b * h * w * len(pyramid) * win * win
+    flops = (2 * c * in_range_neighbours(torch, pyramid, coords, radius)
+             + 8 * outputs)
     nbytes = 4 * (f1.numel() + sum(f.numel() for f in pyramid)
                   + coords.numel() + outputs)
+    return flops, nbytes
+
+
+def corr_bwd_work(torch, f1, pyramid, coords, radius):
+    """Operations and bytes of one backward on these inputs: two
+    multiply-adds of C channels (df1 and df2) for each in-range neighbour,
+    8 operations for each of the (2r+2)^2 coefficients of a query and
+    level; f1, the levels, coords and the cotangent read once, df1 and the
+    df2 levels written once."""
+    b, h, w, c = f1.shape
+    win = 2 * radius + 1
+    queries = b * h * w * len(pyramid)
+    flops = (4 * c * in_range_neighbours(torch, pyramid, coords, radius)
+             + 8 * queries * (2 * radius + 2) ** 2)
+    nbytes = 4 * (2 * f1.numel() + 2 * sum(f.numel() for f in pyramid)
+                  + coords.numel() + queries * win * win)
     return flops, nbytes
 
 
@@ -242,14 +299,22 @@ def nchw(t):
     return t.permute(0, 3, 1, 2).contiguous()
 
 
+def reset_counts(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters):
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
 def serve_pairs(torch, predictor, padder, frames, counters):
     """Serve ``frames`` (after the first, a warm-up) through ``predictor``,
     with every launch counter set to 0 just before. Returns (ms per pair,
     {kernel: launches})."""
     predictor(*frames[0])
     torch.cuda.synchronize()
-    for mod in counters.values():
-        mod.launches = 0
+    reset_counts(counters)
     times = []
     for im1, im2 in frames[1:]:
         t0 = time.perf_counter()
@@ -258,12 +323,12 @@ def serve_pairs(torch, predictor, padder, frames, counters):
         flow = padder.unpad(flow_up)
         if flow.shape != (*SINTEL_HW, 2) or not np.isfinite(flow).all():
             fail(f"Sintel flow has shape {flow.shape} or non-finite values")
-    return times, {name: mod.launches for name, mod in counters.items()}
+    return times, read_counts(counters)
 
 
-def check_launches(launches, pairs, want_per_pair):
+def check_launches(launches, pairs, want_per_pair, unit="pair"):
     for name, n in launches.items():
-        print(f"  {name}: {n} launches ({n / pairs:g} per pair)")
+        print(f"  {name}: {n} launches ({n / pairs:g} per {unit})")
         if n != want_per_pair[name] * pairs:
             fail(f"{name} launched {n} times, expected "
                  f"{want_per_pair[name] * pairs}")
@@ -282,10 +347,9 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10):
         predictor(im1, im2)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-            by_name[e.name][1] += 1
+    for e in device_events(torch, prof):
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
     busy_ms = sum(t for t, _ in by_name.values())
     if not busy_ms:
         print("profile: the profiler recorded no device time (not measured)")
@@ -310,18 +374,375 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10):
               f"{name[:90]}")
 
 
+@contextlib.contextmanager
+def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, perturb=None):
+    """Every kernel's dispatcher replaced by its plain version (autograd
+    through plain PyTorch), for the duration: the reference the kernel
+    route's train step is held against on the card. ``perturb``: a
+    generator; the lookup's and the step's outputs are then multiplied by
+    1 + PERTURB * N(0, 1) from it."""
+    def noisy(out):
+        if perturb is None:
+            return out
+        return out * (1 + PERTURB * torch_randn_like(out, perturb))
+
+    def torch_randn_like(t, gen):
+        return t.new_empty(t.shape).normal_(generator=gen)
+
+    swaps = {
+        (corr_cuda, "windowed_correlation_fused"):
+            lambda f1, pyr, c, r, scale=True: noisy(
+                corr_cuda.windowed_correlation_fused_plain(f1, pyr, c, r,
+                                                           scale)),
+        (step_cuda, "fused_step"):
+            lambda net, inp, corr, flow, convs, packed: noisy(
+                step_cuda.fused_step_plain(net, inp, corr, flow, convs)),
+        (motion_cuda, "motion_encoder"):
+            lambda flow, corr, convs, packed:
+            motion_cuda.motion_encoder_plain(flow, corr, convs),
+        (gru_cuda, "sepconv_gru"):
+            lambda h, x, convs, packed: gru_cuda.sepconv_gru_plain(h, x,
+                                                                   convs)}
+    saved = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, attr), fn in swaps.items():
+            setattr(mod, attr, fn)
+        yield
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def plain_corr_backward(corr_cuda):
+    """The kernel route with only the lookup's backward kernel replaced by
+    autograd through the plain lookup: the corr_bwd kernel in situ."""
+    saved = corr_cuda.windowed_correlation_bwd_cuda
+    corr_cuda.windowed_correlation_bwd_cuda = \
+        corr_cuda.windowed_correlation_bwd_plain
+    try:
+        yield
+    finally:
+        corr_cuda.windowed_correlation_bwd_cuda = saved
+
+
+def synthetic_batch(torch, batch, hw, gen):
+    """A training batch made on the card: random frames, the second the
+    first moved by (dx, dy) = (-3, 2) px, the matching flow, all valid."""
+    h, w = hw
+    img1 = 255.0 * torch.rand((batch, h, w, 3), generator=gen,
+                              device=DEVICE)
+    flow = torch.empty((batch, h, w, 2), device=DEVICE)
+    flow[..., 0], flow[..., 1] = -3.0, 2.0
+    return {"image1": img1, "image2": torch.roll(img1, (2, -3), (1, 2)),
+            "flow": flow, "valid": torch.ones((batch, h, w), device=DEVICE)}
+
+
+class DeviceLoader:
+    """``n`` synthetic batches made on the card from ``seed``; records the
+    host clock at each pull, after the device has finished the work queued
+    so far (so the gaps are whole train steps)."""
+
+    def __init__(self, torch, n, batch, hw, seed):
+        self.torch, self.n, self.batch, self.hw = torch, n, batch, hw
+        self.gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        self.pulls = []
+
+    def __iter__(self):
+        for _ in range(self.n):
+            self.torch.cuda.synchronize()
+            self.pulls.append(time.perf_counter())
+            yield synthetic_batch(self.torch, self.batch, self.hw, self.gen)
+
+
+def cancelled_by_norm(name):
+    """The encoders' conv biases but the final projection's feed a norm
+    (fnet's instance norms, cnet's batch norms on batch statistics), which
+    subtracts them again: their gradient is rounding noise, which Adam's
+    first step turns into a move of up to the rate in either direction."""
+    return re.fullmatch(r"[fc]net\.(conv1|layer\d\.\d\.(conv\d|downsample"
+                        r"\.0))\.bias", name) is not None
+
+
+def train_against_plain(torch, pkg, weights):
+    """One train step (B=2, 184x248, iters=4, chairs defaults) from the
+    fixture weights, on one batch, through the kernels; through the kernels
+    with the plain lookup backward in place of corr_bwd; and through the
+    plain versions three times (twice as they are, once perturbed): the
+    loss, grad_norm, every parameter's (clipped) gradient, every updated
+    parameter and the batch-norm statistics. Returns the kernel route's
+    launches and a list of the checks that failed."""
+    tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
+                           iters=CMP_ITERS, num_steps=100)
+    batch = synthetic_batch(torch, CMP_B, CMP_HW,
+                            torch.Generator(device=DEVICE).manual_seed(1))
+    lr = pkg.make_schedule(tcfg)(0)
+
+    def step():
+        model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True))
+        model.load_state_dict(weights)
+        state = pkg.create_train_state(model.to(DEVICE), tcfg)
+        metrics = pkg.make_train_step(tcfg, alternate_corr=True)(state,
+                                                                  batch)
+        # p.grad keeps the clipped gradient the update used
+        return (metrics, model.state_dict(),
+                {n: p.grad for n, p in model.named_parameters()})
+
+    reset_counts(pkg.counters)
+    kernel = step()
+    launches = read_counts(pkg.counters)
+    with plain_corr_backward(pkg.corr_cuda):
+        kernel_plain_bwd = step()
+    mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda)
+    with plain_route(*mods):
+        plain, again = step(), step()
+    with plain_route(*mods, perturb=torch.Generator(
+            device=DEVICE).manual_seed(4)):
+        perturbed = step()
+
+    def compare(a, b):
+        """Worst differences of step a against step b: the gradients
+        (relative to each parameter's largest), the parameters where the
+        gradient is above ADAM_EXACT and elsewhere, the BN statistics; each
+        (value, parameter)."""
+        worst = {k: (0.0, "") for k in ("grad", "param", "near0", "bn")}
+        for name, want in b[1].items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            diff = (a[1][name] - want).abs()
+            if "running" in name:
+                worst["bn"] = max(worst["bn"], (float(diff.max()), name))
+                continue
+            if name not in b[2]:        # downsample.1, an alias of norm3
+                continue
+            g = b[2][name]
+            if not cancelled_by_norm(name):
+                rel = float((a[2][name] - g).abs().max() / g.abs().max())
+                worst["grad"] = max(worst["grad"], (rel, name))
+            exact = g.abs() >= ADAM_EXACT
+            for kind, where in (("param", exact), ("near0", ~exact)):
+                if bool(where.any()):
+                    worst[kind] = max(worst[kind],
+                                      (float(diff[where].max()), name))
+        return worst
+
+    problems = []
+    for what, key, bar in (("loss", "loss", LOSS_REL),
+                           ("grad_norm", "grad_norm", NORM_REL)):
+        a, b = kernel[0][key], plain[0][key]
+        rel = abs(a - b) / abs(b)
+        print(f"train step kernel vs plain: {what} {a:.7g} vs {b:.7g}, "
+              f"relative difference {rel:.3e} (bar {bar:g})")
+        if not (math.isfinite(a) and rel <= bar):
+            problems.append(f"train step {what}")
+    spread = compare(again, plain)
+    moved = compare(perturbed, plain)
+
+    def check(label, got, base, bar, base_label):
+        limit = max(bar, SPREAD_MARGIN * base[0])
+        print(f"train step {label}: {got[0]:.3e} ({got[1]}); {base_label} "
+              f"{base[0]:.3e} ({base[1]}); bar {limit:.3g}")
+        if not got[0] <= limit:
+            problems.append(f"train step {label}")
+
+    insitu = compare(kernel_plain_bwd, kernel)
+    check("corr_bwd in situ (kernel route, its backward vs autograd "
+          "through the plain lookup), gradients max|diff| / max|plain|",
+          insitu["grad"], spread["grad"], GRAD_REL, "plain vs plain")
+    got = compare(kernel, plain)
+    check("kernel vs plain, gradients max|diff| / max|plain| (the conv "
+          "biases a norm cancels left out)", got["grad"], moved["grad"],
+          GRAD_REL, f"plain vs plain perturbed by {PERTURB:g}")
+    check(f"kernel vs plain, parameters after one AdamW update at lr "
+          f"{lr:.3g} where |gradient| >= {ADAM_EXACT:g}", got["param"],
+          moved["param"], PARAM_BAR, f"plain vs plain perturbed by "
+          f"{PERTURB:g}")
+    check("kernel vs plain, parameters elsewhere", got["near0"], (0.0, ""),
+          2 * lr, "bound 2 lr")
+    check("kernel vs plain, BN running statistics", got["bn"], spread["bn"],
+          BN_BAR, "plain vs plain")
+    if any(r[0]["skipped_steps"] for r in (kernel, plain)):
+        problems.append("the kernel-vs-plain train step was skipped")
+    return launches, problems
+
+
+def train_full_size(torch, pkg, weights_path):
+    """RAFT-large through ``raft_tpu_torch.train.train`` at the chairs
+    defaults (B=8, 368x496, iters=12, lr 4e-4 one-cycle, AdamW, clip 1.0,
+    gamma 0.8, batch norm training) from the fixture weights, on synthetic
+    batches made on the card, 2 warm-up and 5 timed steps, with every launch
+    counter set to 0 just before. Returns (state, ms per step, launches,
+    peak MiB)."""
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    tcfg = pkg.TrainConfig(batch_size=TRAIN_B, image_size=TRAIN_HW,
+                           iters=TRAIN_ITERS, num_steps=steps)
+    loader = DeviceLoader(torch, steps, TRAIN_B, TRAIN_HW, seed=2)
+    logged = []
+
+    class Logger:
+        def push(self, metrics, lr):
+            logged.append((metrics, lr))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(pkg.counters)
+    state = pkg.train(tcfg, pkg.RAFTConfig(), dataloader=loader,
+                      restore_ckpt=weights_path, device=DEVICE,
+                      logger=Logger())
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = read_counts(pkg.counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [1e3 * (b - a) for a, b in zip(loader.pulls,
+                                         loader.pulls[1:] + [end])]
+    if state.step != steps or len(logged) != steps:
+        fail(f"train() took {state.step} steps, expected {steps}")
+    for n, (m, lr) in enumerate(logged):
+        print(f"  step {n}: loss {m['loss']:.5f}, grad_norm "
+              f"{m['grad_norm']:.4f}, epe {m['epe']:.4f}, lr {lr:.4g}, "
+              f"{ms[n]:.1f} ms{' (warm-up)' if n < TRAIN_WARMUP else ''}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and not m["skipped_steps"]):
+            fail(f"train step {n} was not finite")
+    start = pkg.load_npz(weights_path)
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach().cpu(), start[n])]
+    if still:
+        fail(f"{len(still)} parameters did not change in training: "
+             f"{still[:3]}")
+    block = state.model.update_block
+    for module, pack in ((block.encoder, pkg.motion_cuda.pack_weights),
+                         (block.gru, pkg.gru_cuda.pack_weights)):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(module.packed_weights(), pack(module.convs()))):
+            fail("a packed-weight cache was not refreshed after the "
+                 "optimizer's updates")
+    return state, tcfg, ms[TRAIN_WARMUP:], launches, peak_mib
+
+
+# Categories of a train step's device time (profile_train_step), in order
+# of precedence: a kernel belongs to the first whose marker names the
+# kernel or one of the profiler ranges around its launch.
+TRAIN_SPLIT = (
+    ("forward kernels (corr_fwd, update_step)",
+     ("corr_fwd_kernel", "update_step_kernel")),
+    ("step kernel's plain recompute (backward)", ("RecomputeFnBackward",)),
+    ("corr_bwd (backward)", ("WindowedCorrelationFnBackward",)),
+    ("optimizer, clipping and guard",
+     ("Optimizer.", "train_step.guard_and_clip")),
+    ("encoders (forward)", ("raft.encoders",)),
+    ("encoders, heads, upsampling, loss (backward)",
+     ("autograd::engine::evaluate_function",)))
+DEFAULT_SPLIT = "heads, upsampling, loss (forward)"
+# The same time by kernel name alone, a check on the split above.
+NAME_SPLIT = (("corr_fwd, update_step (forward kernels)",
+               ("corr_fwd_kernel", "update_step_kernel")),
+              ("corr_bwd", ("corr_bwd_kernel",)),
+              ("cuDNN convolutions and GEMMs",
+               ("xmma", "cudnn", "conv", "gemm", "wgrad", "dgrad")),
+              ("optimizer (multi-tensor kernels)", ("multi_tensor",)))
+
+
+def device_events(torch, prof):
+    """The profile's device activity (kernels, copies, sets), without the
+    ranges the profiler mirrors onto the device's timeline (user
+    annotations, which carry the name of a host range)."""
+    host = {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in host]
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """One train step under torch.profiler: device time split by
+    TRAIN_SPLIT (else DEFAULT_SPLIT) from the host ranges around each
+    kernel's launch, and by kernel name (NAME_SPLIT)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = device_events(torch, prof)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    if not busy:
+        print("train profile: the profiler recorded no device time "
+              "(not measured)")
+        return {}
+    print(f"train profile: one step at B={TRAIN_B} {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]} iters={TRAIN_ITERS}: device busy {busy:.2f} ms of "
+          f"{wall_ms:.2f} ms wall under the profiler "
+          f"({100 * busy / wall_ms:.1f}%), {len(events)} device events")
+    kernel_names = {e.name for e in events}
+    split = defaultdict(lambda: [0.0, 0])
+
+    def visit(evt, rank):
+        for i, (_, marks) in enumerate(TRAIN_SPLIT[:rank]):
+            if any(m in evt.name for m in marks):
+                rank = i
+                break
+        for k in evt.kernels:
+            if k.name not in kernel_names:      # a mirrored host range
+                continue
+            cat = rank
+            if any(m in k.name for m in TRAIN_SPLIT[0][1]):
+                cat = 0
+            split[cat][0] += k.duration / 1e3
+            split[cat][1] += 1
+        for child in evt.cpu_children:
+            visit(child, rank)
+
+    for evt in prof.events():
+        if evt.cpu_parent is None and \
+                evt.device_type == torch.autograd.DeviceType.CPU:
+            visit(evt, len(TRAIN_SPLIT))
+    print(f"  by the host ranges around each launch "
+          f"({sum(t for t, _ in split.values()):.2f} ms attributed):")
+    out = {}
+    for cat, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        name = TRAIN_SPLIT[cat][0] if cat < len(TRAIN_SPLIT) else \
+            DEFAULT_SPLIT
+        out[name] = ms
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d}x  {name}")
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        cat = next((c for c, marks in NAME_SPLIT
+                    if any(m in e.name.lower() for m in marks)),
+                   "elementwise, norms, reductions, copies")
+        by_name[cat][0] += e.time_range.elapsed_us() / 1e3
+        by_name[cat][1] += 1
+    print("  by kernel name:")
+    for cat, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d}x  {cat}")
+    return out
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, REPO)
+    from types import SimpleNamespace
+
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
     from raft_tpu_torch.evaluate import (ASSETS_DIR, load_predictor,
                                          use_float32_math, validate_golden)
     from raft_tpu_torch.models import corr
+    from raft_tpu_torch.models.raft import RAFT
     from raft_tpu_torch.ops import (build, corr_cuda, gru_cuda, motion_cuda,
                                     sampling, step_cuda)
+    from raft_tpu_torch.optim import make_schedule
+    from raft_tpu_torch.parallel.train_step import (create_train_state,
+                                                    make_train_step)
+    from raft_tpu_torch.train import train
     from raft_tpu_torch.utils.padder import InputPadder
+    from raft_tpu_torch.weights import load_npz
 
     print(card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -360,8 +781,9 @@ def main():
     rng = np.random.default_rng(0)
 
     # -- kernels against their plain versions ------------------------------
-    err = {"corr_fwd": 0.0, "sepconv_gru": 0.0, "motion_fwd": 0.0,
-           "update_step": 0.0}
+    err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
+           "motion_fwd": 0.0, "update_step": 0.0}
+    corr_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
         for label, (h, w) in feat.items():
@@ -404,6 +826,29 @@ def main():
                          f"{label}: {d:.3e}")
             if not torch.equal(checks[3][2][..., 126:], flo):
                 fail("motion_fwd did not pass the flow through bit for bit")
+    # the corr backward against autograd through the plain forward (outside
+    # inference mode: the plain version needs autograd)
+    for label, (h, w) in feat.items():
+        f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w)
+        g = torch.randn(1, h, w, len(pyr) * (2 * radius + 1) ** 2,
+                        device="cuda")
+        got = corr_cuda.windowed_correlation_bwd_cuda(f1, pyr, coords, g,
+                                                      radius)
+        want = corr_cuda.windowed_correlation_bwd_plain(f1, pyr, coords, g,
+                                                        radius)
+        torch.cuda.synchronize()
+        for what, a, b in zip(["df1"] + [f"df2 level {lv}"
+                                         for lv in range(len(pyr))],
+                              (got[0], *got[1]), (want[0], *want[1])):
+            d = float((a - b).abs().max())
+            rel = d / float(b.abs().max())
+            err["corr_bwd"] = max(err["corr_bwd"], d)
+            corr_bwd_rel = max(corr_bwd_rel, rel)
+            print(f"corr_bwd {what} {label} {h}x{w}: max|kernel - plain| = "
+                  f"{d:.3e}, / max|plain| = {rel:.3e} (bar {CORR_BWD_REL:g})")
+            if not rel <= CORR_BWD_REL:
+                fail(f"corr_bwd {what} disagrees with autograd through the "
+                     f"plain lookup at {label}: {rel:.3e}")
 
     # -- goldens through three routes --------------------------------------
     with open(os.path.join(ASSETS_DIR, "golden", "manifest.json")) as f:
@@ -431,8 +876,11 @@ def main():
         b = np.roll(a, (3, -5), axis=(0, 1))
         frames.append(padder.pad(a, b))
     padded = frames[0][0].shape
-    counters = {"corr_fwd": corr_cuda, "update_step": step_cuda,
-                "motion_fwd": motion_cuda, "sepconv_gru": gru_cuda}
+    counters = {"corr_fwd": (corr_cuda, "launches"),
+                "corr_bwd": (corr_cuda, "bwd_launches"),
+                "update_step": (step_cuda, "launches"),
+                "motion_fwd": (motion_cuda, "launches"),
+                "sepconv_gru": (gru_cuda, "launches")}
     serve = load_predictor(weights, iters=SINTEL_ITERS)
     torch.cuda.reset_peak_memory_stats()
     times, launches = serve_pairs(torch, serve, padder, frames, counters)
@@ -444,8 +892,9 @@ def main():
           f"(all {', '.join(f'{t:.2f}' for t in times)}); peak memory "
           f"{peak_mib:.1f} MiB")
     check_launches(launches, SERVE_PAIRS,
-                   {"corr_fwd": SINTEL_ITERS, "update_step": SINTEL_ITERS,
-                    "motion_fwd": 0, "sepconv_gru": 0})
+                   {"corr_fwd": SINTEL_ITERS, "corr_bwd": 0,
+                    "update_step": SINTEL_ITERS, "motion_fwd": 0,
+                    "sepconv_gru": 0})
     chain = load_predictor(weights, iters=SINTEL_ITERS, update_impl="chain")
     chain_times, chain_launches = serve_pairs(
         torch, chain, padder, frames[:CHAIN_PAIRS + 1], counters)
@@ -453,28 +902,93 @@ def main():
           f"B=1: median {statistics.median(chain_times):.2f} ms/pair "
           f"(all {', '.join(f'{t:.2f}' for t in chain_times)})")
     check_launches(chain_launches, CHAIN_PAIRS,
-                   {"corr_fwd": SINTEL_ITERS, "update_step": 0,
-                    "motion_fwd": SINTEL_ITERS, "sepconv_gru": SINTEL_ITERS})
+                   {"corr_fwd": SINTEL_ITERS, "corr_bwd": 0,
+                    "update_step": 0, "motion_fwd": SINTEL_ITERS,
+                    "sepconv_gru": SINTEL_ITERS})
+
+    # -- train: one step against the plain versions, then full size --------
+    pkg = SimpleNamespace(
+        RAFT=RAFT, RAFTConfig=RAFTConfig, TrainConfig=TrainConfig,
+        create_train_state=create_train_state,
+        make_train_step=make_train_step, make_schedule=make_schedule,
+        load_npz=load_npz, train=train, corr_cuda=corr_cuda,
+        step_cuda=step_cuda, motion_cuda=motion_cuda, gru_cuda=gru_cuda,
+        counters=counters)
+    cmp_launches, problems = train_against_plain(torch, pkg,
+                                                 load_npz(weights))
+    check_launches(cmp_launches, 1,
+                   {"corr_fwd": CMP_ITERS, "corr_bwd": CMP_ITERS,
+                    "update_step": CMP_ITERS, "motion_fwd": 0,
+                    "sepconv_gru": 0}, unit="step")
+    state, tcfg, step_ms, train_launches, train_peak = train_full_size(
+        torch, pkg, weights)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    ms_step = statistics.median(step_ms)
+    print(f"train: RAFT-large f32, B={TRAIN_B} {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+          f"iters={TRAIN_ITERS}, {TRAIN_TIMED} timed steps after "
+          f"{TRAIN_WARMUP}: median {ms_step:.2f} ms/step "
+          f"(all {', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{1e3 * TRAIN_B / ms_step:.2f} samples/s; peak memory "
+          f"{train_peak:.1f} MiB")
+    check_launches(train_launches, steps,
+                   {"corr_fwd": TRAIN_ITERS, "corr_bwd": TRAIN_ITERS,
+                    "update_step": TRAIN_ITERS, "motion_fwd": 0,
+                    "sepconv_gru": 0}, unit="step")
     # each kernel's launches on the path that runs it
-    path_of = {"corr_fwd": ("step", launches, SERVE_PAIRS),
-               "update_step": ("step", launches, SERVE_PAIRS),
-               "motion_fwd": ("chain", chain_launches, CHAIN_PAIRS),
-               "sepconv_gru": ("chain", chain_launches, CHAIN_PAIRS)}
+    path_of = {"corr_fwd": ("step", launches, SERVE_PAIRS, "pair"),
+               "update_step": ("step", launches, SERVE_PAIRS, "pair"),
+               "motion_fwd": ("chain", chain_launches, CHAIN_PAIRS, "pair"),
+               "sepconv_gru": ("chain", chain_launches, CHAIN_PAIRS, "pair"),
+               "corr_bwd": ("train", train_launches, steps, "step")}
 
     # -- kernel times at the Sintel shape ----------------------------------
     kernels = []
 
     def entry(name, source, replaces, ms, plain_ms, work, library_ms,
               **extra):
-        path, counts, pairs = path_of[name]
+        path, counts, units, unit = path_of[name]
         bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": counts[name],
-            "launches_per_pair": counts[name] / pairs,
+            f"launches_per_{unit}": counts[name] / units,
+            "train_launches_per_step": train_launches[name] / steps,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, **extra})
+
+    # corr_bwd at the Sintel shape of the corr_fwd row (its plain version
+    # needs autograd, so outside inference mode), and at the train shape
+    h, w = feat["sintel"]
+    f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w)
+    g = torch.randn(1, h, w, len(pyr) * (2 * radius + 1) ** 2, device="cuda")
+    th, tw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    tf1 = torch.randn(TRAIN_B, th, tw, 256, device="cuda")
+    tpyr = corr.build_feature_pyramid(
+        torch.randn(TRAIN_B, th, tw, 256, device="cuda"), 4)
+    # chairs-like motion: flows up to 4 feature pixels (32 image pixels)
+    tcoords = (sampling.coords_grid(TRAIN_B, th, tw, "cuda")
+               + 8.0 * torch.rand(TRAIN_B, th, tw, 2, device="cuda")
+               - 4.0).contiguous()
+    tg = torch.randn(TRAIN_B, th, tw, len(tpyr) * (2 * radius + 1) ** 2,
+                     device="cuda")
+    train_bound_ms, _ = bound(*corr_bwd_work(torch, tf1, tpyr, tcoords,
+                                             radius))
+    entry("corr_bwd", "raft_tpu_torch/csrc/corr_bwd.cu",
+          "raft_tpu/ops/corr_pallas.py:276",
+          time_ms(torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
+              f1, pyr, coords, g, radius)),
+          time_ms(torch, lambda: corr_cuda.windowed_correlation_bwd_plain(
+              f1, pyr, coords, g, radius), n=10),
+          corr_bwd_work(torch, f1, pyr, coords, radius), None,
+          max_rel_err=corr_bwd_rel,
+          ms_train_shape=time_ms(
+              torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
+                  tf1, tpyr, tcoords, tg, radius)),
+          bound_ms_train_shape=train_bound_ms,
+          ms_fwd_train_shape=time_ms(
+              torch, lambda: corr_cuda.windowed_correlation_cuda(
+                  tf1, tpyr, tcoords, radius)))
 
     with torch.inference_mode():
         h, w = feat["sintel"]
@@ -541,7 +1055,18 @@ def main():
     print(f"update_step 'mg': {mg['ms_mg']:.4f} ms a launch, bound "
           f"{mg['bound_ms_mg']:.4f} ms, plain {mg['plain_ms_mg']:.4f} ms, "
           f"library {mg['library_ms_mg']:.4f} ms")
+    cb = kernels[0]
+    print(f"corr_bwd at the train shape (B={TRAIN_B}, {th}x{tw}, flows up "
+          f"to 4 px): {cb['ms_train_shape']:.4f} ms a launch, bound "
+          f"{cb['bound_ms_train_shape']:.4f} ms; corr_fwd there "
+          f"{cb['ms_fwd_train_shape']:.4f} ms")
     profile_pair(torch, serve, *frames[1])
+    profile_train_step(
+        torch, make_train_step(tcfg, alternate_corr=True), state,
+        synthetic_batch(torch, TRAIN_B, TRAIN_HW,
+                        torch.Generator(device="cuda").manual_seed(3)))
+    if problems:
+        fail("kernel and plain train steps disagree: " + "; ".join(problems))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,21 +7,57 @@ Attribute names follow the torch state-dict keys of the reference weights
 both as ``downsample`` = Sequential(conv, norm) and as ``norm3``), so
 ``load_state_dict`` takes those weights with no renaming. Inside, tensors
 are NCHW; ``BasicEncoder`` takes and returns NHWC like its counterpart.
+
+Like the flax modules, every ``forward`` takes a ``train`` flag, which
+selects batch statistics in the batch norms (``BatchNorm``); the module's
+``training`` attribute plays no part.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """Batch norm with flax's semantics (``raft_tpu/models/extractor.py``
+    ``Norm``). ``train=False`` normalises with the running statistics.
+    ``train=True`` normalises with the batch mean and *biased* variance
+    and moves the running statistics 0.1 of the way towards them (flax's
+    momentum 0.9), the variance too taken biased. ``nn.BatchNorm2d`` in
+    training mode would update ``running_var`` with the unbiased variance,
+    N/(N-1) larger. ``num_batches_tracked`` counts the updates."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * scale[:, None, None]
+                + self.bias[:, None, None])
+
+
+class InstanceNorm(nn.InstanceNorm2d):
+    """Instance norm without affine parameters: the same in training."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return super().forward(x)
+
+
 def make_norm(norm_fn: str, planes: int) -> nn.Module:
-    """The norms of RAFT-large: batch (``cnet``; running statistics in eval
-    mode) and instance without affine parameters (``fnet``), eps 1e-5."""
+    """The norms of RAFT-large: batch (``cnet``) and instance without
+    affine parameters (``fnet``), eps 1e-5."""
     if norm_fn == "batch":
-        return nn.BatchNorm2d(planes, eps=1e-5)
+        return BatchNorm(planes, eps=1e-5, momentum=0.1)
     if norm_fn == "instance":
-        return nn.InstanceNorm2d(planes, eps=1e-5, affine=False)
+        return InstanceNorm(planes, eps=1e-5, affine=False)
     raise ValueError(f"unknown norm_fn {norm_fn!r}")
 
 
@@ -43,11 +79,11 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.norm1(self.conv1(x)))
-        y = self.relu(self.norm2(self.conv2(y)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.relu(self.norm1(self.conv1(x), train))
+        y = self.relu(self.norm2(self.conv2(y), train))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.norm3(self.downsample[0](x), train)
         return self.relu(x + y)
 
 
@@ -55,8 +91,12 @@ class BasicEncoder(nn.Module):
     """Stride-8 encoder: 7x7 stem, stages of 64, 96 and 128 channels, then a
     1x1 projection to ``output_dim``."""
 
-    def __init__(self, output_dim: int = 256, norm_fn: str = "batch"):
+    def __init__(self, output_dim: int = 256, norm_fn: str = "batch",
+                 dropout: float = 0.0):
         super().__init__()
+        if dropout > 0:
+            # JAX: nn.Dropout(broadcast_dims=(1, 2)) after conv2.
+            raise NotImplementedError("encoder dropout is not ported yet")
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
         self.norm1 = make_norm(norm_fn, 64)
         self.relu1 = nn.ReLU(inplace=True)
@@ -68,9 +108,12 @@ class BasicEncoder(nn.Module):
                                     ResidualBlock(128, 128, norm_fn, 1))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (B, H, W, 3) -> (B, H/8, W/8, output_dim), both NHWC."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``x`` (B, H, W, 3) -> (B, H/8, W/8, output_dim), both NHWC;
+        ``train`` normalises with batch statistics and updates the running
+        ones (batch norm only)."""
         x = x.permute(0, 3, 1, 2).contiguous()
-        x = self.relu1(self.norm1(self.conv1(x)))
-        x = self.layer3(self.layer2(self.layer1(x)))
+        x = self.relu1(self.norm1(self.conv1(x), train))
+        for block in (*self.layer1, *self.layer2, *self.layer3):
+            x = block(x, train)
         return self.conv2(x).permute(0, 2, 3, 1).contiguous()

@@ -6,7 +6,10 @@ Every module takes and returns NHWC tensors, as its counterpart does.
 ``BasicMotionEncoder`` and ``SepConvGRU`` hand their weights to
 ``ops/motion_cuda.py`` and ``ops/gru_cuda.py``, and ``BasicUpdateBlock``
 the weights of all three modules to ``ops/step_cuda.py``: the CUDA kernel
-on a CUDA tensor, its plain version on the CPU. The remaining convolutions
+on a CUDA tensor (differentiable: its backward recomputes through the plain
+version, ``ops/recompute.py``), its plain version on the CPU. After an
+optimizer updates the weights in place, the packed copies the kernels read
+are rebuilt on the next call (``packed_weights``). The remaining convolutions
 (the flow head outside the step kernel, the mask head) run as
 ``nn.Conv2d`` on an NCHW view of the NHWC memory. Attribute names follow
 the torch state-dict keys (``update_block.gru.convz1``,

@@ -1,15 +1,19 @@
-"""On-demand windowed correlation: the CUDA kernel and its plain version.
+"""On-demand windowed correlation: the CUDA kernels and their plain version.
 
-Counterpart of ``raft_tpu/ops/corr_pallas.py`` (forward only). For each
-query pixel, ``fmap1[q]`` is dotted with bilinear samples (zero padding) of
-every pooled ``fmap2`` level in a (2r+1)^2 window around ``coords[q] /
-2^l``, divided by sqrt(C); the levels are concatenated level-major, and
-window channel ``i*(2r+1)+j`` samples ``(x + i - r, y + j - r)``.
+Counterpart of ``raft_tpu/ops/corr_pallas.py``. For each query pixel,
+``fmap1[q]`` is dotted with bilinear samples (zero padding) of every pooled
+``fmap2`` level in a (2r+1)^2 window around ``coords[q] / 2^l``, divided by
+sqrt(C); the levels are concatenated level-major, and window channel
+``i*(2r+1)+j`` samples ``(x + i - r, y + j - r)``.
 
 ``windowed_correlation_fused`` is the entry point: a tensor on the CPU goes
-to the plain PyTorch version, a CUDA tensor to the kernel in
-``csrc/corr_fwd.cu`` (nothing else; it raises on inputs the kernel does not
-take). ``launches`` counts kernel launches.
+to the plain PyTorch version (differentiated by autograd, coords
+included), a CUDA tensor to ``WindowedCorrelationFn``, whose forward is the
+kernel in ``csrc/corr_fwd.cu`` and whose backward is the kernel in
+``csrc/corr_bwd.cu``, with no gradient for the coordinates (the contract of
+the JAX custom VJP ``_windowed_bwd``; RAFT detaches them every iteration).
+Nothing else runs on the card: the wrappers raise on inputs the kernels do
+not take. ``launches`` and ``bwd_launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
 from raft_tpu_torch.ops.sampling import bilinear_sampler
 
-launches = 0          # kernel launches (windowed_correlation_cuda)
+launches = 0          # forward kernel launches (windowed_correlation_cuda)
+bwd_launches = 0      # backward kernel launches (windowed_correlation_bwd_cuda)
 MAX_LEVELS = 4
 
 
@@ -70,22 +75,30 @@ def windowed_correlation_fused_plain(fmap1, pyramid2, coords, radius: int,
     return torch.cat(out, dim=-1)
 
 
+def windowed_correlation_bwd_plain(fmap1, pyramid2, coords, grad,
+                                   radius: int, scale: bool = True):
+    """The plain version of the backward kernel: autograd through
+    ``windowed_correlation_fused_plain`` for the cotangent ``grad``.
+    Returns ``(df1, (df2_l, ...))`` like ``windowed_correlation_bwd_cuda``
+    (the plain lookup would also give the coordinates a gradient; the
+    kernel's contract has none)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (fmap1, *pyramid2)]
+        out = windowed_correlation_fused_plain(leaves[0], leaves[1:], coords,
+                                               radius, scale)
+        grads = torch.autograd.grad(out, leaves, grad)
+    return grads[0], tuple(grads[1:])
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
-def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
-                              scale: bool = True) -> torch.Tensor:
-    """Launch the kernel of ``csrc/corr_fwd.cu`` on the current stream.
-
-    ``fmap1`` (B, H, W, C), each level (B, H_l, W_l, C), ``coords``
-    (B, H, W, 2) at level-0 scale: float32, contiguous, on one CUDA device;
-    C in {128, 256, 384, 512}, radius 3 or 4, 1 to 4 levels. Returns
-    (B, H, W, L*(2r+1)^2) float32.
-    """
-    global launches
+def _check_lookup(fmap1, pyramid2, coords, radius: int) -> list:
+    """Raise unless the kernels take these operands; returns the levels'
+    (h, w) pairs padded with zeros to ``MAX_LEVELS``."""
     if fmap1.device.type != "cuda":
-        raise ValueError(f"the corr kernel needs CUDA tensors, got "
+        raise ValueError(f"the corr kernels need CUDA tensors, got "
                          f"{fmap1.device}")
     B, H, W, C = fmap1.shape
     L = len(pyramid2)
@@ -103,28 +116,109 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
         check_operand(f"level {lvl}", f2, (B, f2.shape[1], f2.shape[2], C),
                       dev)
         dims += [f2.shape[1], f2.shape[2]]
+    return dims + [0, 0] * (MAX_LEVELS - L)
+
+
+def _padded(levels) -> list:
+    """The levels' tensors padded to ``MAX_LEVELS`` with the first (a
+    level of size 0 x 0 is never read)."""
+    return list(levels) + [levels[0]] * (MAX_LEVELS - len(levels))
+
+
+def _scale_div(C: int, scale: bool) -> float:
+    return float(torch.sqrt(torch.tensor(float(C)))) if scale else 1.0
+
+
+def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
+                              scale: bool = True) -> torch.Tensor:
+    """Launch the kernel of ``csrc/corr_fwd.cu`` on the current stream.
+
+    ``fmap1`` (B, H, W, C), each level (B, H_l, W_l, C), ``coords``
+    (B, H, W, 2) at level-0 scale: float32, contiguous, on one CUDA device;
+    C in {128, 256, 384, 512}, radius 3 or 4, 1 to 4 levels. Returns
+    (B, H, W, L*(2r+1)^2) float32.
+    """
+    global launches
+    dims = _check_lookup(fmap1, pyramid2, coords, radius)
+    B, H, W, C = fmap1.shape
+    dev = fmap1.device
     win = 2 * radius + 1
-    out = torch.empty(B, H, W, L * win * win, device=dev)
-    levels = list(pyramid2) + [pyramid2[0]] * (MAX_LEVELS - L)
-    dims += [0, 0] * (MAX_LEVELS - L)
-    scale_div = float(torch.sqrt(torch.tensor(float(C)))) if scale else 1.0
+    out = torch.empty(B, H, W, len(pyramid2) * win * win, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = build.bind("corr_fwd", "raft_corr_fwd", _ARGTYPES)(
-            fmap1.data_ptr(), *[f.data_ptr() for f in levels],
-            *dims, L, coords.data_ptr(), out.data_ptr(), B, H * W, C,
-            radius, scale_div, stream)
+            fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
+            *dims, len(pyramid2), coords.data_ptr(), out.data_ptr(), B,
+            H * W, C, radius, _scale_div(C, scale), stream)
     if err:
         raise RuntimeError(f"corr_fwd kernel failed: cudaError {err}")
     launches += 1
     return out
 
 
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
+                                  radius: int, scale: bool = True):
+    """Launch the kernel of ``csrc/corr_bwd.cu`` on the current stream: the
+    gradients of ``windowed_correlation_cuda`` for the cotangent ``grad``
+    (B, H, W, L*(2r+1)^2). Operands as for the forward, ``grad`` float32
+    and contiguous too. Returns ``(df1 (B, H, W, C), (df2_l (B, H_l, W_l,
+    C), ...))``, float32; the coordinates get no gradient."""
+    global bwd_launches
+    dims = _check_lookup(fmap1, pyramid2, coords, radius)
+    B, H, W, C = fmap1.shape
+    dev = fmap1.device
+    win = 2 * radius + 1
+    check_operand("grad", grad, (B, H, W, len(pyramid2) * win * win), dev)
+    df1 = torch.empty_like(fmap1)
+    df2s = tuple(torch.zeros_like(f2) for f2 in pyramid2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = build.bind("corr_bwd", "raft_corr_bwd", _BWD_ARGTYPES)(
+            fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
+            *dims, len(pyramid2), coords.data_ptr(), grad.data_ptr(),
+            df1.data_ptr(), *[d.data_ptr() for d in _padded(df2s)], B,
+            H * W, C, radius, 1.0 / _scale_div(C, scale), stream)
+    if err:
+        raise RuntimeError(f"corr_bwd kernel failed: cudaError {err}")
+    bwd_launches += 1
+    return df1, df2s
+
+
+class WindowedCorrelationFn(torch.autograd.Function):
+    """The lookup on the card, differentiable: forward
+    ``windowed_correlation_cuda``, backward ``windowed_correlation_bwd_cuda``
+    (gradients for fmap1 and every level, ``None`` for the coordinates).
+    It saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, fmap1, coords, radius, scale, *pyramid2):
+        ctx.radius, ctx.scale = radius, scale
+        ctx.save_for_backward(fmap1, coords, *pyramid2)
+        return windowed_correlation_cuda(fmap1, pyramid2, coords, radius,
+                                         scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        fmap1, coords, *pyramid2 = ctx.saved_tensors
+        df1, df2s = windowed_correlation_bwd_cuda(
+            fmap1, pyramid2, coords, grad.contiguous(), ctx.radius,
+            ctx.scale)
+        return (df1, None, None, None, *df2s)
+
+
 def windowed_correlation_fused(fmap1, pyramid2, coords, radius: int,
                                scale: bool = True) -> torch.Tensor:
     """All pyramid levels of the on-demand lookup: the plain version for a
-    CPU tensor, the CUDA kernel for a CUDA tensor."""
+    CPU tensor, the CUDA kernels (``WindowedCorrelationFn``) for a CUDA
+    tensor."""
     if fmap1.device.type == "cpu":
         return windowed_correlation_fused_plain(fmap1, pyramid2, coords,
                                                 radius, scale)
-    return windowed_correlation_cuda(fmap1, pyramid2, coords, radius, scale)
+    return WindowedCorrelationFn.apply(fmap1, coords, radius, scale,
+                                       *pyramid2)

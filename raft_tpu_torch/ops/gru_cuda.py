@@ -16,7 +16,9 @@ q1, z2, r2, q2).
 ``sepconv_gru`` is the entry point: a tensor on the CPU goes to the plain
 ``F.conv2d`` version, a CUDA tensor to the kernel in ``csrc/sepconv_gru.cu``
 (one launch per cell, counted in ``launches``), which takes the weights
-packed once by ``pack_weights`` and reads the x parts where they lie.
+packed once by ``pack_weights`` and reads the x parts where they lie,
+through ``sepconv_gru_autograd``, whose backward recomputes through the
+plain version (the JAX ``_gru_bwd``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
+from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # cells computed by the CUDA kernel
 TAPS = 5
@@ -128,10 +131,25 @@ def sepconv_gru_cuda(h: torch.Tensor, x, packed) -> torch.Tensor:
     return out
 
 
+def sepconv_gru_autograd(h: torch.Tensor, x, convs, run) -> torch.Tensor:
+    """The cell as a ``RecomputeFn``: ``run(h, x)`` in the forward (the
+    kernel, or the plain version in a CPU test), the gradients of
+    ``sepconv_gru_plain`` for h, every part of x and the six convolutions'
+    weights and biases in the backward."""
+    xs = _parts(x)
+
+    def plain(h, *rest):
+        return sepconv_gru_plain(h, rest[:len(xs)], pairs(rest[len(xs):]))
+
+    return RecomputeFn.apply(lambda h, *rest: run(h, rest[:len(xs)]), plain,
+                             h, *xs, *flatten(convs))
+
+
 def sepconv_gru(h: torch.Tensor, x, convs, packed) -> torch.Tensor:
     """One SepConvGRU cell: the plain version (``convs``) for a CPU tensor,
     the CUDA kernel (``packed``, from ``pack_weights(convs)``) for a CUDA
-    tensor."""
+    tensor, differentiable either way."""
     if h.device.type == "cpu":
         return sepconv_gru_plain(h, x, convs)
-    return sepconv_gru_cuda(h, x, packed)
+    return sepconv_gru_autograd(h, x, convs,
+                                lambda h, x: sepconv_gru_cuda(h, x, packed))

@@ -16,7 +16,9 @@ conv).
 ``motion_encoder`` is the entry point: a tensor on the CPU goes to the
 plain ``F.conv2d`` version, a CUDA tensor to the kernel in
 ``csrc/motion_fwd.cu`` (one launch, counted in ``launches``), which takes
-the weights packed once by ``pack_weights``.
+the weights packed once by ``pack_weights``, through
+``motion_encoder_autograd``, whose backward recomputes through the plain
+version (the JAX ``_motion_bwd``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
 from raft_tpu_torch.ops.conv_pack import BN, pack_conv, packed_rows, round_up
+from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
 # Output widths of convc1, convc2, convf1, convf2 and conv (fixed by
@@ -119,11 +122,25 @@ def motion_encoder_cuda(flow: torch.Tensor, corr: torch.Tensor,
     return out
 
 
+def motion_encoder_autograd(flow: torch.Tensor, corr: torch.Tensor, convs,
+                            run) -> torch.Tensor:
+    """The encoder as a ``RecomputeFn``: ``run(flow, corr)`` in the forward
+    (the kernel, or the plain version in a CPU test), the gradients of
+    ``motion_encoder_plain`` for flow, corr and the five convolutions'
+    weights and biases in the backward."""
+    def plain(flow, corr, *w):
+        return motion_encoder_plain(flow, corr, pairs(w))
+
+    return RecomputeFn.apply(lambda *a: run(*a[:2]), plain, flow, corr,
+                             *flatten(convs))
+
+
 def motion_encoder(flow: torch.Tensor, corr: torch.Tensor, convs,
                    packed) -> torch.Tensor:
     """The motion encoder: the plain version (``convs``) for a CPU tensor,
     the CUDA kernel (``packed``, from ``pack_weights(convs)``) for a CUDA
-    tensor."""
+    tensor, differentiable either way."""
     if corr.device.type == "cpu":
         return motion_encoder_plain(flow, corr, convs)
-    return motion_encoder_cuda(flow, corr, packed)
+    return motion_encoder_autograd(
+        flow, corr, convs, lambda f, c: motion_encoder_cuda(f, c, packed))

@@ -16,7 +16,9 @@ weights (``motion_cuda.pack_weights``, ``gru_cuda.pack_weights``,
 
 ``fused_step`` is the entry point: a tensor on the CPU goes to the plain
 version, a CUDA tensor to the kernel in ``csrc/update_step.cu`` (one launch
-per call, counted in ``launches``).
+per call, counted in ``launches``) through ``fused_step_autograd``, whose
+backward recomputes through the plain version (``ops/recompute.py``, the
+strategy of the JAX ``_step_bwd``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from raft_tpu_torch.ops import build, gru_cuda, motion_cuda
 from raft_tpu_torch.ops.build import check_operand
 from raft_tpu_torch.ops.conv_pack import pack_conv
+from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
 FLOW_HEAD_HIDDEN = 256
@@ -123,10 +126,32 @@ def fused_step_cuda(net, inp, corr, flow, packed):
     return h2 if delta is None else (h2, delta)
 
 
+def fused_step_autograd(net, inp, corr, flow, convs, run):
+    """The step as a ``RecomputeFn``: ``run(net, inp, corr, flow)`` in the
+    forward (the kernel, or the plain version in a CPU test), and in the
+    backward the gradients of ``fused_step_plain`` for the four activations
+    and every raw weight and bias in ``convs`` (5 + 6 convolutions, + 2 at
+    ``'mgf'``)."""
+    motion, gru, head = convs
+    n_motion, n_gru = 2 * len(motion), 2 * len(gru)
+
+    def plain(net, inp, corr, flow, *w):
+        return fused_step_plain(net, inp, corr, flow, (
+            pairs(w[:n_motion]), pairs(w[n_motion:n_motion + n_gru]),
+            pairs(w[n_motion + n_gru:]) if head is not None else None))
+
+    return RecomputeFn.apply(lambda *a: run(*a[:4]), plain, net, inp, corr,
+                             flow, *flatten(motion), *flatten(gru),
+                             *flatten(head or ()))
+
+
 def fused_step(net, inp, corr, flow, convs, packed):
     """One refine iteration: the plain version (``convs``) for a CPU
-    tensor, the CUDA kernel (``packed``) for a CUDA tensor. The depth is
-    ``'mgf'`` when the head entry of the triples is not None."""
+    tensor, the CUDA kernel (``packed``) for a CUDA tensor, differentiable
+    either way. The depth is ``'mgf'`` when the head entry of the triples
+    is not None."""
     if net.device.type == "cpu":
         return fused_step_plain(net, inp, corr, flow, convs)
-    return fused_step_cuda(net, inp, corr, flow, packed)
+    return fused_step_autograd(
+        net, inp, corr, flow, convs,
+        lambda *a: fused_step_cuda(*a, packed))

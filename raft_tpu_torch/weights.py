@@ -1,6 +1,7 @@
-"""Weights for the port: the torch-named ``.npz`` archives, and the
-inverse of ``raft_tpu/utils/torch_convert.py`` (JAX variables -> this
-port's state dict), so that both packages can run the same weights."""
+"""Weights for the port: the torch-named ``.npz`` archives (read and
+written), and the inverse of ``raft_tpu/utils/torch_convert.py`` (JAX
+variables -> this port's state dict), so that both packages can run the
+same weights."""
 
 from __future__ import annotations
 
@@ -81,3 +82,13 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         state[key.replace(".norm3.", ".downsample.1.")] = state[key]
     return {k: v.float() if v.is_floating_point() else v
             for k, v in state.items()}
+
+
+def state_dict_to_npz(state_dict: Mapping[str, torch.Tensor],
+                      path: str) -> None:
+    """Save a state dict as a torch-keyed ``.npz`` archive that
+    ``load_npz`` reads back: every entry under its own key (parameters,
+    batch-norm running statistics and ``num_batches_tracked``), as float32
+    (the counter as int64)."""
+    np.savez(path, **{k: v.detach().cpu().numpy()
+                      for k, v in state_dict.items()})

@@ -254,20 +254,27 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, port_model):
         evaluate.main(["--model", WEIGHTS, "--dataset", "golden"])
 
 
+TRAINING_MODULES = ("raft_tpu_torch.train", "raft_tpu_torch.losses",
+                    "raft_tpu_torch.optim", "raft_tpu_torch.ops.recompute",
+                    "raft_tpu_torch.parallel.train_step")
+
+
 def test_import_pulls_in_no_jax():
-    """Every module of the port imports without JAX, flax or raft_tpu."""
+    """Every module of the port, the training slice's included, imports
+    without JAX, flax, optax or raft_tpu."""
     code = (
         "import importlib, pkgutil, sys, raft_tpu_torch\n"
         "for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "
         "'raft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'raft_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'raft_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('raft_tpu_torch')]"
-        "), bad)\n")
+        f"), all(m in sys.modules for m in {TRAINING_MODULES!r}), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                         capture_output=True, text=True).stdout.split(" ", 1)
-    assert int(out[0]) > 10 and out[1].strip() == "[]", out
+                         capture_output=True, text=True).stdout.split(" ", 2)
+    assert int(out[0]) > 15 and out[1] == "True" and out[2].strip() == "[]", \
+        out
 
 
 def test_iters_and_unported_configs_raise(port_model, frames):
