@@ -5,24 +5,31 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the port's six CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` each, all at once), holds each kernel against its plain PyTorch
 version at the golden and Sintel feature shapes (the GRU with x whole and
 as parts, the step kernel at both depths, the corr backward against
-autograd through the plain lookup), checks RAFT-large against the
-committed goldens through three routes (on-demand correlation with the
-step kernel, with the motion and GRU kernels, and the all-pairs engine),
-serves five Sintel-size pairs (436x1024, iters=32) on the default path and
-two on the ``update_impl="chain"`` path through the port's
-``FlowPredictor``, holds one train step through the kernels against the
-same step through the plain versions (B=2, 184x248, iters=4), trains
-RAFT-large for 7 steps at the chairs defaults (B=8, 368x496, iters=12)
-through the port's ``train`` on synthetic batches, counting kernel launches
-on every path, times each kernel beside its plain version, its bound and a
-cuDNN yardstick where one exists, profiles one Sintel pair and one train
-step, and prints one JSON line of kernel numbers. The last line is
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
-that line; without a CUDA card it exits non-zero at once.
+autograd through the plain lookup) and at the sparse family's shapes (the
+corr forward at its fork lookup, C = 128, 192 and 256 with no per-level
+rescale; ``msda_fwd`` at the decoder's and the dense encoder's shapes),
+checks RAFT-large against the committed goldens through three routes
+(on-demand correlation with the step kernel, with the motion and GRU
+kernels, and the all-pairs engine), serves five Sintel-size pairs
+(436x1024, iters=32) on the default path and two on the
+``update_impl="chain"`` path through the port's ``FlowPredictor``, serves
+SparseRAFT at full OursConfig widths through ``load_predictor("random",
+model_family="sparse")`` (352x480, B=8 at the defaults and B=4 with
+``encoder_iterations=2``), holds those forwards against the plain route
+and the tiny JAX-made fixture's flow against JAX's, holds one train step
+through the kernels against the same step through the plain versions (B=2,
+184x248, iters=4), trains RAFT-large for 7 steps at the chairs defaults
+(B=8, 368x496, iters=12) through the port's ``train`` on synthetic batches,
+counting kernel launches on every path, times each kernel beside its plain
+version, its bound and a cuDNN yardstick where one exists, profiles one
+Sintel pair, one sparse forward and one train step, and prints one JSON
+line of kernel numbers. The last line is ``{"ok": true, "device":
+{...}}``. Any failed check exits non-zero before that line; without a CUDA
+card it exits non-zero at once.
 """
 
 import contextlib
@@ -70,6 +77,19 @@ SPREAD_MARGIN = 4.0
 # gradient is above ADAM_EXACT = 10 eps; the others are held to 2 lr.
 ADAM_EXACT = 1e-7
 CORR_BWD_REL = 1e-4           # max|kernel - plain| / max|plain|
+# The sparse family at bench.py's configuration (352x480, B=8) and at
+# scripts/tpu_extras_bench.py's dense-encoder one (B=4, encoder_iterations
+# 2): one warm-up, then SPARSE_TIMED forwards.
+SPARSE_HW = (352, 480)
+SPARSE_RUNS = (("defaults", 8, 0), ("encoder_iterations=2", 4, 2))
+SPARSE_TIMED = 3
+# the token levels at 352x480: strides 8, 16, 32 of both images
+SPARSE_LEVELS = [(44, 60), (22, 30), (11, 15)] * 2
+# kernel route vs plain route: max|diff| of flow_up within the larger of
+# these; only where that fails, within SPREAD_MARGIN times the plain
+# route's own move under PERTURB relative noise on the lookups' and the
+# MSDA cores' outputs (reported as the fallback it is)
+SPARSE_FLOW_PX, SPARSE_FLOW_REL = 1e-3, 1e-4
 DEVICE = "cuda"               # the train helpers' device
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -327,11 +347,13 @@ def serve_pairs(torch, predictor, padder, frames, counters):
 
 
 def check_launches(launches, pairs, want_per_pair, unit="pair"):
+    """Every counter against ``want_per_pair`` (0 for a kernel it does not
+    name)."""
     for name, n in launches.items():
+        want = want_per_pair.get(name, 0) * pairs
         print(f"  {name}: {n} launches ({n / pairs:g} per {unit})")
-        if n != want_per_pair[name] * pairs:
-            fail(f"{name} launched {n} times, expected "
-                 f"{want_per_pair[name] * pairs}")
+        if n != want:
+            fail(f"{name} launched {n} times, expected {want}")
 
 
 def profile_pair(torch, predictor, im1, im2, top: int = 10):
@@ -347,13 +369,16 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10):
         predictor(im1, im2)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in device_events(torch, prof):
+    events = device_events(torch, prof)
+    for e in events:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         by_name[e.name][1] += 1
-    busy_ms = sum(t for t, _ in by_name.values())
-    if not busy_ms:
+    device_ms = sum(t for t, _ in by_name.values())
+    if not device_ms:
         print("profile: the profiler recorded no device time (not measured)")
         return
+    busy = busy_ms(events)
+    print_overlaps("profile", events, device_ms, busy)
     steps = sum(n for name, (_, n) in by_name.items()
                 if "update_step_kernel" in name)
     if steps != SINTEL_ITERS:
@@ -365,21 +390,23 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10):
           f"{cudnn_convs} cuDNN convolution launches (the encoders and the "
           f"final iteration's heads); "
           f"{sum(n for _, n in by_name.values())} device launches in all")
-    print(f"profile: one Sintel pair, device busy {busy_ms:.2f} ms of "
+    print(f"profile: one Sintel pair, device busy {busy:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler "
-          f"({100 * busy_ms / wall_ms:.1f}%), {len(by_name)} kernel names")
+          f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
+          f"{len(by_name)} kernel names")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
-        print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% {n:5d}x  "
+        print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% {n:5d}x  "
               f"{name[:90]}")
 
 
 @contextlib.contextmanager
-def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, perturb=None):
+def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
+                perturb=None):
     """Every kernel's dispatcher replaced by its plain version (autograd
     through plain PyTorch), for the duration: the reference the kernel
-    route's train step is held against on the card. ``perturb``: a
-    generator; the lookup's and the step's outputs are then multiplied by
+    route is held against on the card. ``perturb``: a generator; the
+    lookup's, the step's and the MSDA core's outputs are then multiplied by
     1 + PERTURB * N(0, 1) from it."""
     def noisy(out):
         if perturb is None:
@@ -391,9 +418,12 @@ def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, perturb=None):
 
     swaps = {
         (corr_cuda, "windowed_correlation_fused"):
-            lambda f1, pyr, c, r, scale=True: noisy(
+            lambda f1, pyr, c, r, scale=True, rescale=True: noisy(
                 corr_cuda.windowed_correlation_fused_plain(f1, pyr, c, r,
-                                                           scale)),
+                                                           scale, rescale)),
+        (msda, "ms_deform_attn"):
+            lambda v, shapes, loc, aw: noisy(
+                msda.ms_deform_attn_plain(v, shapes, loc, aw)),
         (step_cuda, "fused_step"):
             lambda net, inp, corr, flow, convs, packed: noisy(
                 step_cuda.fused_step_plain(net, inp, corr, flow, convs)),
@@ -493,7 +523,8 @@ def train_against_plain(torch, pkg, weights):
     launches = read_counts(pkg.counters)
     with plain_corr_backward(pkg.corr_cuda):
         kernel_plain_bwd = step()
-    mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda)
+    mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda,
+            pkg.msda)
     with plain_route(*mods):
         plain, again = step(), step()
     with plain_route(*mods, perturb=torch.Generator(
@@ -654,6 +685,52 @@ def device_events(torch, prof):
             and e.name not in host]
 
 
+def busy_ms(events) -> float:
+    """The time the device was busy: the union of the events' spans, so
+    that events which overlap (copies beside kernels, kernels on other
+    streams) count once. The sum of their durations, the device time the
+    shares below divide, can exceed it."""
+    total, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def overlaps(events, top: int = 3):
+    """Where device events ran at once: the streams the events ran on, and
+    the overlapped time by (earlier, later) kernel name, largest first.
+    Each event is set against the one with the latest end before it; the
+    sum of durations less busy_ms is the exact overlapped total."""
+    from collections import defaultdict
+
+    streams = sorted({e.device_resource_id for e in events})
+    pairs = defaultdict(lambda: [0.0, 0])
+    last = None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if last is not None and e.time_range.start < last.time_range.end:
+            key = (last.name, e.name)
+            pairs[key][0] += (min(e.time_range.end, last.time_range.end)
+                              - e.time_range.start) / 1e3
+            pairs[key][1] += 1
+        if last is None or e.time_range.end > last.time_range.end:
+            last = e
+    return streams, sorted(pairs.items(), key=lambda kv: -kv[1][0])[:top]
+
+
+def print_overlaps(label, events, device_ms, busy):
+    streams, pairs = overlaps(events)
+    print(f"{label}: {device_ms - busy:.3f} ms of device time overlaps "
+          f"other device events; streams {streams}")
+    for (first, then), (ms, n) in pairs:
+        print(f"  {ms:8.3f} ms {n:5d}x  {first[:60]}  ||  {then[:60]}")
+
+
 def profile_train_step(torch, step_fn, state, batch):
     """One train step under torch.profiler: device time split by
     TRAIN_SPLIT (else DEFAULT_SPLIT) from the host ranges around each
@@ -669,15 +746,18 @@ def profile_train_step(torch, step_fn, state, batch):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = device_events(torch, prof)
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    if not busy:
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    if not device_ms:
         print("train profile: the profiler recorded no device time "
               "(not measured)")
         return {}
+    busy = busy_ms(events)
+    print_overlaps("train profile", events, device_ms, busy)
     print(f"train profile: one step at B={TRAIN_B} {TRAIN_HW[0]}x"
           f"{TRAIN_HW[1]} iters={TRAIN_ITERS}: device busy {busy:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler "
-          f"({100 * busy / wall_ms:.1f}%), {len(events)} device events")
+          f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
+          f"{len(events)} device events")
     kernel_names = {e.name for e in events}
     split = defaultdict(lambda: [0.0, 0])
 
@@ -708,7 +788,7 @@ def profile_train_step(torch, step_fn, state, batch):
         name = TRAIN_SPLIT[cat][0] if cat < len(TRAIN_SPLIT) else \
             DEFAULT_SPLIT
         out[name] = ms
-        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d}x  {name}")
+        print(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f}% {n:6d}x  {name}")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in events:
         cat = next((c for c, marks in NAME_SPLIT
@@ -718,7 +798,268 @@ def profile_train_step(torch, step_fn, state, batch):
         by_name[cat][1] += 1
     print("  by kernel name:")
     for cat, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d}x  {cat}")
+        print(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f}% {n:6d}x  {cat}")
+    return out
+
+
+def msda_inputs(torch, rng, b, lq, d, m=8, p=4, levels=SPARSE_LEVELS):
+    """value, locations over [-0.1, 1.1] and softmaxed weights at one MSDA
+    shape, on the card."""
+    dev = torch.device("cuda")
+    s = sum(h * w for h, w in levels)
+    nl = len(levels)
+
+    def put(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    value = put(rng.standard_normal((b, s, m, d)))
+    loc = put(rng.uniform(-0.1, 1.1, (b, lq, m, nl, p, 2)))
+    aw = torch.softmax(put(rng.standard_normal((b, lq, m, nl * p))), -1)
+    return value, loc, aw.reshape(b, lq, m, nl, p).contiguous()
+
+
+def msda_work(torch, value, levels, loc, aw):
+    """Operations and bytes of one MSDA call on these inputs: 2 D
+    operations for each in-range corner and 12 for each sample's corner
+    weights; the locations and weights read once, the output written once,
+    and each distinct value row (pixel, head) that an in-range corner
+    touches read once."""
+    b, s, m, d = value.shape
+    lq, p = loc.shape[1], loc.shape[4]
+    corners, rows = 0, []
+    start = 0
+    bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1)
+    mi = torch.arange(m, device=loc.device).view(1, 1, m, 1)
+    for lvl, (h, w) in enumerate(levels):
+        px = loc[:, :, :, lvl, :, 0] * w - 0.5
+        py = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0, y0 = torch.floor(px).long(), torch.floor(py).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                corners += int(ok.sum())
+                pix = start + y * w + x
+                rows.append(((bi * s + pix) * m + mi)[ok])
+        start += h * w
+    distinct = int(torch.unique(torch.cat(rows)).numel())
+    flops = 2 * d * corners + 12 * aw.numel()
+    nbytes = 4 * (loc.numel() + aw.numel() + b * lq * m * d + distinct * d)
+    return flops, nbytes
+
+
+def sparse_corr_inputs(torch, rng, b, h, w, c):
+    """The fork lookup at one token level: fmap1, a 2-level pooled pyramid
+    of fmap2 and the half-pixel centres, on the card."""
+    from raft_tpu_torch.models import corr
+
+    dev = torch.device("cuda")
+    f1 = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.float32,
+                      device=dev)
+    pyr = corr.build_feature_pyramid(torch.tensor(
+        rng.standard_normal((b, h, w, c)), dtype=torch.float32, device=dev),
+        2)
+    ys = torch.arange(h, device=dev) + 0.5
+    xs = torch.arange(w, device=dev) + 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    centers = torch.stack([gx, gy], -1)[None].expand(b, h, w, 2).contiguous()
+    return f1, pyr, centers
+
+
+def fork_corr_work(torch, f1, pyr, centers, radius):
+    """corr_work for the fork lookup: every level sampled around the
+    centres themselves."""
+    b, h, w, c = f1.shape
+    win = 2 * radius + 1
+    steps = torch.arange(2 * radius + 2, device=centers.device)
+    neighbours = 0
+    for f2 in pyr:
+        xs = torch.floor(centers[..., 0:1]) - radius + steps
+        ys = torch.floor(centers[..., 1:2]) - radius + steps
+        nx = ((xs >= 0) & (xs < f2.shape[2])).sum(-1)
+        ny = ((ys >= 0) & (ys < f2.shape[1])).sum(-1)
+        neighbours += int((nx * ny).sum())
+    outputs = b * h * w * len(pyr) * win * win
+    flops = 2 * c * neighbours + 8 * outputs
+    nbytes = 4 * (f1.numel() + sum(f.numel() for f in pyr) + centers.numel()
+                  + outputs)
+    return flops, nbytes
+
+
+def sparse_frames(batch, seed):
+    """``batch`` seeded 352x480 pairs in [0, 255], the second frame the
+    first moved by (5, -3) px."""
+    rng = np.random.default_rng(seed)
+    img1 = rng.uniform(0, 255, (batch, *SPARSE_HW, 3)).astype(np.float32)
+    return img1, np.roll(img1, (-3, 5), axis=(1, 2))
+
+
+def serve_sparse(torch, predictor, frames, counters):
+    """One warm-up forward of the batch, then SPARSE_TIMED forwards with
+    every launch counter set to 0 just before. Returns (ms per forward,
+    {kernel: launches}, the last flow_up)."""
+    predictor.predict_batch(*frames)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    times = []
+    for _ in range(SPARSE_TIMED):
+        t0 = time.perf_counter()
+        _, flow_up = predictor.predict_batch(*frames)
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts(counters)
+    want = (frames[0].shape[0], *SPARSE_HW, 2)
+    if flow_up.shape != want or not np.isfinite(flow_up).all():
+        fail(f"sparse flow has shape {flow_up.shape} (expected {want}) or "
+             f"non-finite values")
+    return times, launches, flow_up
+
+
+def sparse_against_plain(torch, pkg, predictor, frames, flow_kernel, label):
+    """The kernel route's flow_up against the plain route's (every
+    dispatcher its plain version) on the same batch, and the plain route's
+    own move under PERTURB relative noise. Returns a problem or None."""
+    mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda,
+            pkg.msda)
+    with plain_route(*mods):
+        _, plain = predictor.predict_batch(*frames)
+    with plain_route(*mods, perturb=torch.Generator(
+            device=DEVICE).manual_seed(5)):
+        _, moved = predictor.predict_batch(*frames)
+    scale = float(np.abs(plain).max())
+    got = float(np.abs(flow_kernel - plain).max())
+    spread = float(np.abs(moved - plain).max())
+    bar = max(SPARSE_FLOW_PX, SPARSE_FLOW_REL * scale)
+    print(f"sparse [{label}] kernel vs plain route: flow_up max|diff| "
+          f"{got:.3e} px (max|flow| {scale:.3f} px; bar {bar:.3g}); plain vs "
+          f"plain perturbed by {PERTURB:g}: {spread:.3e}")
+    if got <= bar:
+        return None
+    limit = SPREAD_MARGIN * spread
+    print(f"sparse [{label}] kernel vs plain route: above the bar; held to "
+          f"{SPREAD_MARGIN:g} x the plain route's spread instead, "
+          f"{limit:.3g} px: {'pass' if got <= limit else 'FAIL'}")
+    return None if got <= limit else f"sparse [{label}] kernel vs plain"
+
+
+# Categories of a sparse forward's device time by kernel name, in order of
+# precedence (profile_sparse).
+SPARSE_SPLIT = (
+    ("msda_fwd", ("msda_fwd_kernel",)),
+    ("corr_fwd", ("corr_fwd_kernel",)),
+    ("batch, group and layer norms", ("norm", "bn_fw")),
+    ("cuDNN convolutions (implicit GEMM and FFT)",
+     ("fprop", "fft", "pointwise_mult_and_sum_complex", "convolve",
+      "cudnn", "winograd")),
+    ("host-to-device copies", ("memcpy htod",)))
+
+
+def profile_sparse(torch, predictor, frames, top: int = 10):
+    """One sparse forward under torch.profiler: device busy share of the
+    (profiled, so inflated) wall time, the shares of the device time of the
+    corr and MSDA kernels and the top device operations by time. Returns
+    the MSDA and corr shares."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predictor.predict_batch(*frames)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = defaultdict(lambda: [0.0, 0])
+    events = device_events(torch, prof)
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    device_ms = sum(t for t, _ in by_name.values())
+    if not device_ms:
+        print("sparse profile: the profiler recorded no device time (not "
+              "measured)")
+        return {}
+    busy = busy_ms(events)
+    print_overlaps("sparse profile", events, device_ms, busy)
+    shares = {}
+    for kernel in ("msda_fwd_kernel", "corr_fwd_kernel"):
+        ms = sum(t for name, (t, _) in by_name.items() if kernel in name)
+        n = sum(c for name, (_, c) in by_name.items() if kernel in name)
+        shares[kernel] = ms / device_ms
+        print(f"sparse profile: {kernel}: {n} launches, {ms:.3f} ms, "
+              f"{100 * ms / device_ms:.1f}% of device time")
+    print(f"sparse profile: one forward at the defaults (B={SPARSE_RUNS[0][1]}"
+          f", {SPARSE_HW[0]}x{SPARSE_HW[1]}): device busy {busy:.2f} ms of "
+          f"{wall_ms:.2f} ms wall under the profiler "
+          f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
+          f"{sum(n for _, n in by_name.values())} device launches, "
+          f"{len(by_name)} kernel names")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% {n:5d}x  "
+              f"{name[:90]}")
+    split = defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in by_name.items():
+        cat = next((c for c, marks in SPARSE_SPLIT
+                    if any(m in name.lower() for m in marks)),
+                   "elementwise, softmax, reductions, GEMMs of the tokens")
+        split[cat][0] += ms
+        split[cat][1] += n
+    print("sparse profile by kernel name:")
+    for cat, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% {n:5d}x  {cat}")
+    return shares
+
+
+def sparse_fixture_check(torch, pkg, counters):
+    """The tiny fixture's weights and pair (assets/golden/sparse_tiny.npz)
+    through load_predictor on the card, by the kernel route and by the
+    plain route, against JAX's stored flow: max|diff| within 1e-4 of
+    max(1, max|JAX|), the CPU slice test's bar. Returns a problem or
+    None."""
+    pred = pkg.load_predictor(pkg.SPARSE_GOLDEN, model_family="sparse")
+    with np.load(pkg.SPARSE_GOLDEN) as z:
+        img1, img2 = (z[k].astype(np.float32) for k in ("image1", "image2"))
+        want = z["flow_up"]
+    bar = 1e-4 * max(1.0, float(np.abs(want).max()))
+    reset_counts(counters)
+    _, kernel = pred(img1, img2)
+    launches = read_counts(counters)
+    mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda,
+            pkg.msda)
+    with plain_route(*mods):
+        _, plain = pred(img1, img2)
+    cfg = pred.model.config
+    check_launches(launches, 1, {
+        "corr_fwd": 2 * cfg.num_feature_levels,
+        "msda_fwd": cfg.outer_iterations + 2 * cfg.encoder_iterations},
+        unit="forward")
+    problem = None
+    for route, flow in (("kernel", kernel), ("plain", plain)):
+        d = float(np.abs(flow - want).max())
+        print(f"sparse fixture ({cfg.base_channel}-channel tiny config, "
+              f"{img1.shape[0]}x{img1.shape[1]}) [{route} route] vs JAX: "
+              f"max|diff| {d:.3e} px, EPE "
+              f"{float(np.sqrt(((flow - want) ** 2).sum(-1)).mean()):.3e} "
+              f"(bar {bar:.3g})")
+        if not d <= bar:
+            problem = f"sparse fixture [{route} route] vs JAX"
+    return problem
+
+
+def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius):
+    """corr_fwd at the fork lookup's three token levels (B=8 at 352x480):
+    the kernel's and the plain version's ms a launch and the bound, keyed
+    by C, for the corr_fwd row."""
+    out = {"ms_sparse": {}, "plain_ms_sparse": {}, "bound_ms_sparse": {}}
+    for c, (h, w) in sparse_corr.items():
+        f1, pyr, centers = sparse_corr_inputs(torch, rng, SPARSE_RUNS[0][1],
+                                              h, w, c)
+        out["ms_sparse"][str(c)] = time_ms(
+            torch, lambda: corr_cuda.windowed_correlation_cuda(
+                f1, pyr, centers, radius, rescale=False))
+        out["plain_ms_sparse"][str(c)] = time_ms(
+            torch, lambda: corr_cuda.windowed_correlation_fused_plain(
+                f1, pyr, centers, radius, rescale=False), n=10)
+        out["bound_ms_sparse"][str(c)] = bound(*fork_corr_work(
+            torch, f1, pyr, centers, radius))[0]
     return out
 
 
@@ -730,13 +1071,14 @@ def main():
     sys.path.insert(0, REPO)
     from types import SimpleNamespace
 
-    from raft_tpu_torch.config import RAFTConfig, TrainConfig
-    from raft_tpu_torch.evaluate import (ASSETS_DIR, load_predictor,
-                                         use_float32_math, validate_golden)
+    from raft_tpu_torch.config import OursConfig, RAFTConfig, TrainConfig
+    from raft_tpu_torch.evaluate import (ASSETS_DIR, SPARSE_GOLDEN,
+                                         load_predictor, use_float32_math,
+                                         validate_golden)
     from raft_tpu_torch.models import corr
     from raft_tpu_torch.models.raft import RAFT
     from raft_tpu_torch.ops import (build, corr_cuda, gru_cuda, motion_cuda,
-                                    sampling, step_cuda)
+                                    msda, msda_cuda, sampling, step_cuda)
     from raft_tpu_torch.optim import make_schedule
     from raft_tpu_torch.parallel.train_step import (create_train_state,
                                                     make_train_step)
@@ -782,7 +1124,7 @@ def main():
 
     # -- kernels against their plain versions ------------------------------
     err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
-           "motion_fwd": 0.0, "update_step": 0.0}
+           "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0}
     corr_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
@@ -850,6 +1192,44 @@ def main():
                 fail(f"corr_bwd {what} disagrees with autograd through the "
                      f"plain lookup at {label}: {rel:.3e}")
 
+    # the sparse family's kernels at its full-width shapes: the fork lookup
+    # at the three token levels of 352x480 (B=8, 2 levels, no per-level
+    # rescale) and MSDA at the decoder's and the dense encoder's shapes
+    sparse_corr = {c: (h, w) for c, (h, w) in zip(
+        (128, 192, 256), SPARSE_LEVELS[:3])}
+    msda_shapes = {"decoder": (SPARSE_RUNS[0][1], 100, 16),
+                   "encoder": (SPARSE_RUNS[1][1], sum(
+                       h * w for h, w in SPARSE_LEVELS), 8)}
+    with torch.inference_mode():
+        for c, (h, w) in sparse_corr.items():
+            f1, pyr, centers = sparse_corr_inputs(torch, rng,
+                                                  SPARSE_RUNS[0][1], h, w, c)
+            got = corr_cuda.windowed_correlation_cuda(f1, pyr, centers,
+                                                      radius, rescale=False)
+            want = corr_cuda.windowed_correlation_fused_plain(
+                f1, pyr, centers, radius, rescale=False)
+            torch.cuda.synchronize()
+            d = float((got - want).abs().max())
+            err["corr_fwd"] = max(err["corr_fwd"], d)
+            print(f"corr_fwd fork lookup C={c} B={SPARSE_RUNS[0][1]} {h}x{w}"
+                  f" (2 levels, rescale=False): max|kernel - plain| = "
+                  f"{d:.3e} (bar {TOL:g})")
+            if not d <= TOL:
+                fail(f"corr_fwd disagrees with its plain version at the "
+                     f"fork lookup, C={c}: {d:.3e}")
+        for label, (b, lq, d_head) in msda_shapes.items():
+            value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
+            got = msda_cuda.ms_deform_attn_cuda(value, SPARSE_LEVELS, loc, aw)
+            want = msda.ms_deform_attn_plain(value, SPARSE_LEVELS, loc, aw)
+            torch.cuda.synchronize()
+            d = float((got - want).abs().max())
+            err["msda_fwd"] = max(err["msda_fwd"], d)
+            print(f"msda_fwd {label} B={b} Lq={lq} M=8 D={d_head} L=6 P=4: "
+                  f"max|kernel - plain| = {d:.3e} (bar {TOL:g})")
+            if not d <= TOL:
+                fail(f"msda_fwd disagrees with its plain version at the "
+                     f"{label} shape: {d:.3e}")
+
     # -- goldens through three routes --------------------------------------
     with open(os.path.join(ASSETS_DIR, "golden", "manifest.json")) as f:
         manifest = json.load(f)
@@ -880,7 +1260,8 @@ def main():
                 "corr_bwd": (corr_cuda, "bwd_launches"),
                 "update_step": (step_cuda, "launches"),
                 "motion_fwd": (motion_cuda, "launches"),
-                "sepconv_gru": (gru_cuda, "launches")}
+                "sepconv_gru": (gru_cuda, "launches"),
+                "msda_fwd": (msda_cuda, "launches")}
     serve = load_predictor(weights, iters=SINTEL_ITERS)
     torch.cuda.reset_peak_memory_stats()
     times, launches = serve_pairs(torch, serve, padder, frames, counters)
@@ -906,14 +1287,50 @@ def main():
                     "update_step": 0, "motion_fwd": SINTEL_ITERS,
                     "sepconv_gru": SINTEL_ITERS})
 
-    # -- train: one step against the plain versions, then full size --------
     pkg = SimpleNamespace(
         RAFT=RAFT, RAFTConfig=RAFTConfig, TrainConfig=TrainConfig,
         create_train_state=create_train_state,
         make_train_step=make_train_step, make_schedule=make_schedule,
         load_npz=load_npz, train=train, corr_cuda=corr_cuda,
         step_cuda=step_cuda, motion_cuda=motion_cuda, gru_cuda=gru_cuda,
-        counters=counters)
+        msda=msda, load_predictor=load_predictor,
+        SPARSE_GOLDEN=SPARSE_GOLDEN, counters=counters)
+
+    # -- serve SparseRAFT at full OursConfig widths ------------------------
+    sparse_problems = []
+    sparse_launches = {}
+    sparse_preds = {}
+    for label, batch, enc in SPARSE_RUNS:
+        cfg = OursConfig(encoder_iterations=enc)
+        pred = load_predictor("random", model_family="sparse", config=cfg,
+                              seed=1)
+        frames_b = sparse_frames(batch, seed=3)
+        torch.cuda.reset_peak_memory_stats()
+        times, sl, flow_up = serve_sparse(torch, pred, frames_b, counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ms = statistics.median(times)
+        print(f"serve sparse [{label}]: SparseRAFT f32, OursConfig widths "
+              f"(d_model {cfg.d_model}, {cfg.num_feature_levels} levels, "
+              f"{cfg.outer_iterations} outer iterations, {cfg.num_keypoints} "
+              f"keypoints, encoder_iterations {enc}), random weights from "
+              f"seed 1, B={batch} {SPARSE_HW[0]}x{SPARSE_HW[1]}: median "
+              f"{ms:.2f} ms/forward (all {', '.join(f'{t:.2f}' for t in times)}"
+              f"), {1e3 * batch / ms:.2f} pairs/s; peak memory {peak:.1f} MiB; "
+              f"max|flow_up| {float(np.abs(flow_up).max()):.3f} px")
+        check_launches(sl, SPARSE_TIMED, {
+            "corr_fwd": 2 * cfg.num_feature_levels,
+            "msda_fwd": cfg.outer_iterations + 2 * enc}, unit="forward")
+        sparse_launches[label] = sl
+        sparse_preds[label] = (pred, frames_b)
+        problem = sparse_against_plain(torch, pkg, pred, frames_b, flow_up,
+                                       label)
+        if problem:
+            sparse_problems.append(problem)
+    problem = sparse_fixture_check(torch, pkg, counters)
+    if problem:
+        sparse_problems.append(problem)
+
+    # -- train: one step against the plain versions, then full size --------
     cmp_launches, problems = train_against_plain(torch, pkg,
                                                  load_npz(weights))
     check_launches(cmp_launches, 1,
@@ -939,7 +1356,9 @@ def main():
                "update_step": ("step", launches, SERVE_PAIRS, "pair"),
                "motion_fwd": ("chain", chain_launches, CHAIN_PAIRS, "pair"),
                "sepconv_gru": ("chain", chain_launches, CHAIN_PAIRS, "pair"),
-               "corr_bwd": ("train", train_launches, steps, "step")}
+               "corr_bwd": ("train", train_launches, steps, "step"),
+               "msda_fwd": ("sparse", sparse_launches[SPARSE_RUNS[0][0]],
+                            SPARSE_TIMED, "forward")}
 
     # -- kernel times at the Sintel shape ----------------------------------
     kernels = []
@@ -1000,7 +1419,8 @@ def main():
               time_ms(torch, lambda: corr_cuda
                       .windowed_correlation_fused_plain(
                           f1, pyr, coords, radius), n=20),
-              corr_work(torch, f1, pyr, coords, radius), None)
+              corr_work(torch, f1, pyr, coords, radius), None,
+              **sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius))
 
         net, inp, cor, flo = update_inputs(torch, rng, h, w)
         mot = motion_cuda.motion_encoder_plain(flo, cor, m_convs)
@@ -1046,27 +1466,65 @@ def main():
               depth="mgf", ms_mg=step["mg"]["ms"],
               plain_ms_mg=step["mg"]["plain_ms"], bound_ms_mg=mg_bound_ms,
               library_ms_mg=step["mg"]["library_ms"])
+        msda_times = {}
+        for label, (b, lq, d_head) in msda_shapes.items():
+            value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
+            msda_times[label] = (
+                time_ms(torch, lambda: msda_cuda.ms_deform_attn_cuda(
+                    value, SPARSE_LEVELS, loc, aw)),
+                time_ms(torch, lambda: msda.ms_deform_attn_plain(
+                    value, SPARSE_LEVELS, loc, aw), n=10),
+                msda_work(torch, value, SPARSE_LEVELS, loc, aw))
+        enc_label = SPARSE_RUNS[1][0]
+        entry("msda_fwd", "raft_tpu_torch/csrc/msda_fwd.cu",
+              "raft_tpu/ops/msda_pallas.py:95", *msda_times["decoder"], None,
+              shape="decoder: B=8 Lq=100 M=8 D=16 L=6 P=4",
+              ms_encoder=msda_times["encoder"][0],
+              plain_ms_encoder=msda_times["encoder"][1],
+              bound_ms_encoder=bound(*msda_times["encoder"][2])[0],
+              bound_by_encoder=bound(*msda_times["encoder"][2])[1],
+              shape_encoder="encoder: B=4 Lq=6930 M=8 D=8 L=6 P=4",
+              launches_per_forward_encoder=sparse_launches[enc_label][
+                  "msda_fwd"] / SPARSE_TIMED)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         print(f"{k['name']}: {k['ms']:.4f} ms a launch, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, library {lib}")
-    mg = kernels[-1]
+    named = {k["name"]: k for k in kernels}
+    mg = named["update_step"]
     print(f"update_step 'mg': {mg['ms_mg']:.4f} ms a launch, bound "
           f"{mg['bound_ms_mg']:.4f} ms, plain {mg['plain_ms_mg']:.4f} ms, "
           f"library {mg['library_ms_mg']:.4f} ms")
-    cb = kernels[0]
+    cb = named["corr_bwd"]
     print(f"corr_bwd at the train shape (B={TRAIN_B}, {th}x{tw}, flows up "
           f"to 4 px): {cb['ms_train_shape']:.4f} ms a launch, bound "
           f"{cb['bound_ms_train_shape']:.4f} ms; corr_fwd there "
           f"{cb['ms_fwd_train_shape']:.4f} ms")
+    cf = named["corr_fwd"]
+    for c in sparse_corr:
+        print(f"corr_fwd fork lookup C={c}: {cf['ms_sparse'][str(c)]:.4f} ms "
+              f"a launch, bound {cf['bound_ms_sparse'][str(c)]:.4f} ms, plain "
+              f"{cf['plain_ms_sparse'][str(c)]:.4f} ms")
+    md = named["msda_fwd"]
+    print(f"msda_fwd at the encoder shape: {md['ms_encoder']:.4f} ms a "
+          f"launch, bound {md['bound_ms_encoder']:.4f} ms "
+          f"({md['bound_by_encoder']}), plain {md['plain_ms_encoder']:.4f} ms")
     profile_pair(torch, serve, *frames[1])
+    sparse_shares = profile_sparse(torch, *sparse_preds[SPARSE_RUNS[0][0]])
+    if sparse_shares:
+        named["msda_fwd"]["device_share_sparse_forward"] = sparse_shares[
+            "msda_fwd_kernel"]
+        named["corr_fwd"]["device_share_sparse_forward"] = sparse_shares[
+            "corr_fwd_kernel"]
     profile_train_step(
         torch, make_train_step(tcfg, alternate_corr=True), state,
         synthetic_batch(torch, TRAIN_B, TRAIN_HW,
                         torch.Generator(device="cuda").manual_seed(3)))
     if problems:
         fail("kernel and plain train steps disagree: " + "; ".join(problems))
+    if sparse_problems:
+        fail("sparse checks failed: " + "; ".join(sparse_problems))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

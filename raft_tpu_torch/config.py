@@ -1,7 +1,7 @@
 """Model and training configuration, the counterpart of
-``raft_tpu/config.py``'s ``RAFTConfig`` and ``TrainConfig``: the same
-fields, defaults and validation, with dtype levers kept as strings (no
-framework dtypes)."""
+``raft_tpu/config.py``'s ``RAFTConfig``, ``TrainConfig`` and ``OursConfig``:
+the same fields, defaults and validation, with dtype levers kept as strings
+(no framework dtypes)."""
 
 from __future__ import annotations
 
@@ -102,3 +102,41 @@ class TrainConfig:
     # run stops (0: never).
     max_consecutive_skips: int = 20
     async_checkpointing: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class OursConfig:
+    """The sparse-keypoint ("ours") family, the counterpart of
+    ``raft_tpu.config.OursConfig``: d_model 128, 3 feature levels (strides
+    8/16/32), 6 outer iterations of a deformable decoder over 100 learned
+    keypoint queries, 2-level correlation inputs with radius 4.
+    ``alternate_corr`` selects the on-demand lookup (the corr kernel on the
+    card); False selects the materialised all-pairs engine.
+    ``encoder_iterations > 0`` adds that many deformable encoder layers over
+    the motion and the context tokens (the ``ours_07`` lineage)."""
+
+    base_channel: int = 64
+    d_model: int = 128
+    num_feature_levels: int = 3
+    outer_iterations: int = 6
+    num_keypoints: int = 100
+    n_heads: int = 8
+    n_points: int = 4
+    dropout: float = 0.1
+    corr_levels: int = 2
+    corr_radius: int = 4
+    alternate_corr: bool = True
+    mixed_precision: bool = False
+    encoder_iterations: int = 0
+
+    @property
+    def up_dim(self) -> int:
+        return round(self.base_channel * 1.5)
+
+    @property
+    def level_channels(self):
+        """Channels of the pyramid levels fed to the decoder (strides 8, 16,
+        32 for 3 levels)."""
+        c = self.base_channel
+        return [round(c * 1.5), c * 2, round(c * 3), c * 4][
+            4 - self.num_feature_levels:]

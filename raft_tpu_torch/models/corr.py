@@ -11,7 +11,9 @@
 Both give the same numbers up to float summation order. Window channel
 ``i*(2r+1)+j`` samples ``(x + i - r, y + j - r)``: the first window axis
 moves x, as in the reference's delta grid, so reference weights read the
-channels in the order they were trained on.
+channels in the order they were trained on. Level l is sampled around
+``coords / 2**l``; ``rescale=False`` samples every level around ``coords``,
+the lookup the sparse family was trained with.
 """
 
 from __future__ import annotations
@@ -47,15 +49,16 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return tuple(pyramid)
 
 
-def pyramid_lookup(pyramid, coords: torch.Tensor, radius: int) -> torch.Tensor:
+def pyramid_lookup(pyramid, coords: torch.Tensor, radius: int,
+                   rescale: bool = True) -> torch.Tensor:
     """Windowed bilinear lookup into a materialised pyramid; level l is
-    sampled around ``coords / 2**l``. ``coords`` (B, H, W, 2). Returns
-    (B, H, W, L*(2r+1)^2)."""
+    sampled around ``coords / 2**l`` (``coords`` with ``rescale=False``).
+    ``coords`` (B, H, W, 2). Returns (B, H, W, L*(2r+1)^2)."""
     B, H, W, _ = coords.shape
     flat = coords.reshape(B * H * W, 2)
     out = []
     for lvl, corr in enumerate(pyramid):
-        centroid = flat / (2 ** lvl)
+        centroid = flat / (2 ** lvl) if rescale else flat
         sampled = windowed_bilinear_matmul(corr, centroid[:, 0],
                                            centroid[:, 1], radius)
         out.append(sampled.reshape(B, H, W, -1))
@@ -66,12 +69,13 @@ class CorrBlock:
     """Materialised all-pairs correlation pyramid with windowed lookup."""
 
     def __init__(self, fmap1, fmap2, num_levels: int = 4, radius: int = 4,
-                 scale: bool = True):
+                 scale: bool = True, rescale: bool = True):
         self.radius = radius
+        self.rescale = rescale
         self.pyramid = build_corr_pyramid(fmap1, fmap2, num_levels, scale)
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
-        return pyramid_lookup(self.pyramid, coords, self.radius)
+        return pyramid_lookup(self.pyramid, coords, self.radius, self.rescale)
 
 
 def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int) -> tuple:
@@ -84,13 +88,14 @@ def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int) -> tuple:
 
 
 def alternate_lookup(fmap1: torch.Tensor, pyramid2, coords: torch.Tensor,
-                     radius: int, scale: bool = True) -> torch.Tensor:
+                     radius: int, scale: bool = True,
+                     rescale: bool = True) -> torch.Tensor:
     """On-demand windowed lookup over a pooled feature pyramid; equal to
     ``pyramid_lookup`` over the materialised volume. A CUDA tensor goes to
     the kernel, a CPU tensor to its plain version; a level pooled to zero
     size gives zero windows either way."""
     return corr_cuda.windowed_correlation_fused(fmap1, pyramid2, coords,
-                                                radius, scale)
+                                                radius, scale, rescale)
 
 
 class AlternateCorrBlock:
@@ -98,12 +103,14 @@ class AlternateCorrBlock:
     demand."""
 
     def __init__(self, fmap1, fmap2, num_levels: int = 4, radius: int = 4,
-                 scale: bool = True):
+                 scale: bool = True, rescale: bool = True):
         self.radius = radius
         self.scale = scale
+        self.rescale = rescale
         self.fmap1 = fmap1.contiguous()
         self.pyramid2 = build_feature_pyramid(fmap2, num_levels)
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         return alternate_lookup(self.fmap1, self.pyramid2,
-                                coords.contiguous(), self.radius, self.scale)
+                                coords.contiguous(), self.radius, self.scale,
+                                self.rescale)

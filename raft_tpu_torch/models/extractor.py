@@ -1,6 +1,7 @@
 """Feature and context encoders of canonical RAFT-large, the counterpart of
 ``raft_tpu/models/extractor.py`` (``Norm``, ``ResidualBlock``,
-``BasicEncoder``).
+``BasicEncoder``); the sparse family's encoders reuse the block with GELU
+(``models/sparse_extractor.py``).
 
 Attribute names follow the torch state-dict keys of the reference weights
 (``conv1``, ``norm1``, ``layer1.0`` ...; the stride-2 shortcut is registered
@@ -44,6 +45,11 @@ class BatchNorm(nn.BatchNorm2d):
                 + self.bias[:, None, None])
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 class InstanceNorm(nn.InstanceNorm2d):
     """Instance norm without affine parameters: the same in training."""
 
@@ -62,15 +68,18 @@ def make_norm(norm_fn: str, planes: int) -> nn.Module:
 
 
 class ResidualBlock(nn.Module):
-    """Two 3x3 convs with norm and ReLU, plus a 1x1 strided shortcut when
-    stride > 1."""
+    """Two 3x3 convs with norm and activation, plus a 1x1 strided shortcut
+    when stride > 1. ``act`` is "relu" (RAFT) or "gelu" (the sparse
+    family's encoders: flax's ``nn.gelu``, the tanh approximation)."""
 
     def __init__(self, in_planes: int, planes: int, norm_fn: str,
-                 stride: int = 1):
+                 stride: int = 1, act: str = "relu"):
         super().__init__()
+        if act not in ("relu", "gelu"):
+            raise ValueError(f"unknown act {act!r}")
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
-        self.relu = nn.ReLU(inplace=True)
+        self.act = nn.ReLU(inplace=True) if act == "relu" else gelu
         self.norm1 = make_norm(norm_fn, planes)
         self.norm2 = make_norm(norm_fn, planes)
         self.downsample = None
@@ -80,11 +89,11 @@ class ResidualBlock(nn.Module):
                 nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.relu(self.norm1(self.conv1(x), train))
-        y = self.relu(self.norm2(self.conv2(y), train))
+        y = self.act(self.norm1(self.conv1(x), train))
+        y = self.act(self.norm2(self.conv2(y), train))
         if self.downsample is not None:
             x = self.norm3(self.downsample[0](x), train)
-        return self.relu(x + y)
+        return self.act(x + y)
 
 
 class BasicEncoder(nn.Module):

@@ -130,3 +130,50 @@ def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
     x = x[:, :2 * h2, :2 * w2]
     x = x.reshape(x.shape[0], h2, 2, w2, 2, *x.shape[3:])
     return x.sum(dim=(2, 4)) * 0.25
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Clamped logit, the working space of the sparse model's iterative
+    flow refinement."""
+    x = x.clamp(0.0, 1.0)
+    return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
+
+
+def linear_resize_weights(n_in: int, n_out: int,
+                          device=None) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize(..., "linear")`` along one
+    axis (JAX's ``scale_and_translate`` with antialiasing): a triangle
+    kernel at half-pixel centres, widened by the shrink factor when
+    shrinking, normalised per output, zero for an output whose centre lies
+    outside the input."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+              * inv_scale - 0.5)
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - (sample[None] - src[:, None]).abs() / kernel_scale,
+                    min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None], w, torch.zeros_like(w))
+
+
+def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
+    """What ``jax.image.resize(x, shape, method="linear")`` computes: each
+    axis whose size changes is contracted with ``linear_resize_weights``
+    (antialiased when it shrinks, which no ``F.interpolate`` mode
+    reproduces). Returns float32 of ``shape``."""
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {tuple(shape)} has {len(shape)} axes, "
+                         f"x has {x.ndim}")
+    out = x.float()
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        w = linear_resize_weights(n_in, n_out, x.device)
+        out = torch.tensordot(out.movedim(axis, -1), w, dims=1).movedim(-1,
+                                                                       axis)
+    return out

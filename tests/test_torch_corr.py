@@ -305,7 +305,8 @@ def test_corr_function_wiring_and_no_coords_gradient(corr_case, monkeypatch):
     monkeypatch.setattr(corr_cuda, "windowed_correlation_bwd_cuda", bwd)
     t1, t2, tc = _leaves(f1, f2, coords)
     levels = corr.build_feature_pyramid(t2, L)
-    out = corr_cuda.WindowedCorrelationFn.apply(t1, tc, r, True, *levels)
+    out = corr_cuda.WindowedCorrelationFn.apply(t1, tc, r, True, True,
+                                                *levels)
     (out * _t(cot)).sum().backward()
     assert calls == [out.shape] and tc.grad is None
 

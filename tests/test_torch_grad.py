@@ -93,8 +93,8 @@ def _inject_plain(monkeypatch):
                         corr_cuda.windowed_correlation_bwd_plain)
     monkeypatch.setattr(
         corr_cuda, "windowed_correlation_fused",
-        lambda f1, pyr, c, r, scale=True: corr_cuda.WindowedCorrelationFn
-        .apply(f1, c, r, scale, *pyr))
+        lambda f1, pyr, c, r, scale=True, rescale=True: corr_cuda
+        .WindowedCorrelationFn.apply(f1, c, r, scale, rescale, *pyr))
     monkeypatch.setattr(
         step_cuda, "fused_step",
         lambda net, inp, cor, flo, convs, packed: step_cuda

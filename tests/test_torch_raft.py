@@ -256,12 +256,17 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, port_model):
 
 TRAINING_MODULES = ("raft_tpu_torch.train", "raft_tpu_torch.losses",
                     "raft_tpu_torch.optim", "raft_tpu_torch.ops.recompute",
-                    "raft_tpu_torch.parallel.train_step")
+                    "raft_tpu_torch.parallel.train_step",
+                    # the sparse family's
+                    "raft_tpu_torch.models.ours",
+                    "raft_tpu_torch.models.sparse_extractor",
+                    "raft_tpu_torch.models.deformable",
+                    "raft_tpu_torch.ops.msda", "raft_tpu_torch.ops.msda_cuda")
 
 
 def test_import_pulls_in_no_jax():
-    """Every module of the port, the training slice's included, imports
-    without JAX, flax, optax or raft_tpu."""
+    """Every module of the port, the training slice's and the sparse
+    family's included, imports without JAX, flax, optax or raft_tpu."""
     code = (
         "import importlib, pkgutil, sys, raft_tpu_torch\n"
         "for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "
