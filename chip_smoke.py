@@ -5,29 +5,32 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the port's seven CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` each, all at once), holds each kernel against its plain PyTorch
 version at the golden and Sintel feature shapes (the GRU with x whole and
 as parts, the step kernel at both depths, the corr backward against
 autograd through the plain lookup) and at the sparse family's shapes (the
-corr forward at its fork lookup, C = 128, 192 and 256 with no per-level
-rescale; ``msda_fwd`` at the decoder's and the dense encoder's shapes),
-checks RAFT-large against the committed goldens through three routes
-(on-demand correlation with the step kernel, with the motion and GRU
-kernels, and the all-pairs engine), serves five Sintel-size pairs
-(436x1024, iters=32) on the default path and two on the
+corr forward and backward at its fork lookup, C = 128, 192 and 256 with no
+per-level rescale; ``msda_fwd`` and ``msda_bwd`` at the decoder's and the
+dense encoder's shapes), checks RAFT-large against the committed goldens
+through three routes (on-demand correlation with the step kernel, with the
+motion and GRU kernels, and the all-pairs engine), serves five Sintel-size
+pairs (436x1024, iters=32) on the default path and two on the
 ``update_impl="chain"`` path through the port's ``FlowPredictor``, serves
 SparseRAFT at full OursConfig widths through ``load_predictor("random",
 model_family="sparse")`` (352x480, B=8 at the defaults and B=4 with
 ``encoder_iterations=2``), holds those forwards against the plain route
-and the tiny JAX-made fixture's flow against JAX's, holds one train step
-through the kernels against the same step through the plain versions (B=2,
-184x248, iters=4), trains RAFT-large for 7 steps at the chairs defaults
-(B=8, 368x496, iters=12) through the port's ``train`` on synthetic batches,
-counting kernel launches on every path, times each kernel beside its plain
-version, its bound and a cuDNN yardstick where one exists, profiles one
-Sintel pair, one sparse forward and one train step, and prints one JSON
-line of kernel numbers. The last line is ``{"ok": true, "device":
+and the tiny JAX-made fixture's flow against JAX's, holds one RAFT train
+step (B=2, 184x248, iters=4) and one SparseRAFT train step (B=2, 352x480,
+dropout 0) through the kernels against the same steps through the plain
+versions, trains RAFT-large for 7 steps at the chairs defaults (B=8,
+368x496, iters=12) and SparseRAFT at 352x480 (B=8 at the defaults, 7
+steps; B=4 with ``encoder_iterations=2``, 3 steps; ``sparse_lambda=0.1``)
+through the port's ``train`` on synthetic batches, counting kernel
+launches on every path, times each kernel beside its plain version, its
+bound and a cuDNN yardstick where one exists, profiles one Sintel pair,
+one sparse forward, one RAFT and one sparse train step, and prints one
+JSON line of kernel numbers. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
 card it exits non-zero at once.
 """
@@ -90,6 +93,15 @@ SPARSE_LEVELS = [(44, 60), (22, 30), (11, 15)] * 2
 # route's own move under PERTURB relative noise on the lookups' and the
 # MSDA cores' outputs (reported as the fallback it is)
 SPARSE_FLOW_PX, SPARSE_FLOW_REL = 1e-3, 1e-4
+# The sparse family's training at the fork's training resolution
+# (352x480, train_standard.sh:6, as scripts/tpu_extras_bench.py's
+# sparse_train), sparse_lambda 0.1, AdamW, random weights: B=8 at the
+# defaults (2 warm-up and 5 timed steps) and B=4 with encoder_iterations=2
+# (1 and 2); the kernel-vs-plain step at B=2 with dropout 0.
+SPARSE_TRAIN_RUNS = (("defaults", 8, 0, 2, 5),
+                     ("encoder_iterations=2", 4, 2, 1, 2))
+SPARSE_LAMBDA = 0.1
+SPARSE_CMP_B = 2
 DEVICE = "cuda"               # the train helpers' device
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -145,14 +157,15 @@ def corr_inputs(torch, sampling, corr, rng, h, w, c=256, levels=4):
     return f1, pyramid, coords.contiguous()
 
 
-def in_range_neighbours(torch, pyramid, coords, radius):
+def in_range_neighbours(torch, pyramid, coords, radius, rescale=True):
     """In-range integer neighbours of every query's (2r+2)^2 grid, summed
-    over the levels: the dot products the corr kernels do on these
-    inputs."""
+    over the levels (level l around coords / 2^l, or around coords with
+    ``rescale=False``, the fork lookup): the dot products the corr kernels
+    do on these inputs."""
     steps = torch.arange(2 * radius + 2, device=coords.device)
     neighbours = 0
     for lvl, f2 in enumerate(pyramid):
-        cl = coords / (2 ** lvl)
+        cl = coords / (2 ** lvl) if rescale else coords
         xs = torch.floor(cl[..., 0:1]) - radius + steps
         ys = torch.floor(cl[..., 1:2]) - radius + steps
         nx = ((xs >= 0) & (xs < f2.shape[2])).sum(-1)
@@ -161,21 +174,22 @@ def in_range_neighbours(torch, pyramid, coords, radius):
     return neighbours
 
 
-def corr_work(torch, f1, pyramid, coords, radius):
+def corr_work(torch, f1, pyramid, coords, radius, rescale=True):
     """Operations and bytes of one lookup on these inputs: a dot product
     of C channels for each in-range integer neighbour, 8 operations for
     each bilinear output; every input read once, the output written once."""
     b, h, w, c = f1.shape
     win = 2 * radius + 1
     outputs = b * h * w * len(pyramid) * win * win
-    flops = (2 * c * in_range_neighbours(torch, pyramid, coords, radius)
+    flops = (2 * c * in_range_neighbours(torch, pyramid, coords, radius,
+                                         rescale)
              + 8 * outputs)
     nbytes = 4 * (f1.numel() + sum(f.numel() for f in pyramid)
                   + coords.numel() + outputs)
     return flops, nbytes
 
 
-def corr_bwd_work(torch, f1, pyramid, coords, radius):
+def corr_bwd_work(torch, f1, pyramid, coords, radius, rescale=True):
     """Operations and bytes of one backward on these inputs: two
     multiply-adds of C channels (df1 and df2) for each in-range neighbour,
     8 operations for each of the (2r+2)^2 coefficients of a query and
@@ -184,7 +198,8 @@ def corr_bwd_work(torch, f1, pyramid, coords, radius):
     b, h, w, c = f1.shape
     win = 2 * radius + 1
     queries = b * h * w * len(pyramid)
-    flops = (4 * c * in_range_neighbours(torch, pyramid, coords, radius)
+    flops = (4 * c * in_range_neighbours(torch, pyramid, coords, radius,
+                                         rescale)
              + 8 * queries * (2 * radius + 2) ** 2)
     nbytes = 4 * (2 * f1.numel() + 2 * sum(f.numel() for f in pyramid)
                   + coords.numel() + queries * win * win)
@@ -444,16 +459,22 @@ def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
 
 
 @contextlib.contextmanager
-def plain_corr_backward(corr_cuda):
-    """The kernel route with only the lookup's backward kernel replaced by
-    autograd through the plain lookup: the corr_bwd kernel in situ."""
-    saved = corr_cuda.windowed_correlation_bwd_cuda
-    corr_cuda.windowed_correlation_bwd_cuda = \
-        corr_cuda.windowed_correlation_bwd_plain
+def plain_backward(pkg):
+    """The kernel route with only the backward kernels (corr_bwd,
+    msda_bwd) replaced by autograd through their plain versions: the
+    backward kernels in situ."""
+    swaps = {(pkg.corr_cuda, "windowed_correlation_bwd_cuda"):
+             pkg.corr_cuda.windowed_correlation_bwd_plain,
+             (pkg.msda_cuda, "ms_deform_attn_bwd_cuda"):
+             pkg.msda.ms_deform_attn_bwd_plain}
+    saved = {key: getattr(*key) for key in swaps}
     try:
+        for (mod, attr), fn in swaps.items():
+            setattr(mod, attr, fn)
         yield
     finally:
-        corr_cuda.windowed_correlation_bwd_cuda = saved
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
 
 
 def synthetic_batch(torch, batch, hw, gen):
@@ -494,26 +515,37 @@ def cancelled_by_norm(name):
                         r"\.0))\.bias", name) is not None
 
 
-def train_against_plain(torch, pkg, weights):
-    """One train step (B=2, 184x248, iters=4, chairs defaults) from the
-    fixture weights, on one batch, through the kernels; through the kernels
-    with the plain lookup backward in place of corr_bwd; and through the
-    plain versions three times (twice as they are, once perturbed): the
-    loss, grad_norm, every parameter's (clipped) gradient, every updated
-    parameter and the batch-norm statistics. Returns the kernel route's
+def sparse_cancelled_by_norm(name):
+    """SparseRAFT's biases whose gradient is rounding noise: those of every
+    conv of the two trunks and of the FPN merge, each in front of a norm
+    (instance norms in CNNEncoder, batch norms on batch statistics in
+    CNNDecoder), and those a softmax cancels: the self-attention's key
+    bias (a constant over the keys) and the context embedding's last bias
+    (a constant over the keypoints)."""
+    return re.fullmatch(r"cnn_(en|de)coder\.(trunk\.(conv1|down_layer\d\.\d\."
+                        r"(conv\d|downsample\.0))|up_(top1|lateral1|smooth1))"
+                        r"\.bias|decoder\.\d+\.self_attn\.key\.bias"
+                        r"|context_embed\.\d+\.layers\.2\.bias",
+                        name) is not None
+
+
+def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
+                       cancelled, **step_kw):
+    """One train step from the weights ``make_model()`` gives, on one
+    batch, through the kernels; through the kernels with the backward
+    kernels replaced by autograd through their plain versions; and through
+    the plain versions three times (twice as they are, once perturbed): the
+    loss (and the sparse loss), grad_norm, every parameter's (clipped)
+    gradient, every updated parameter and the batch-norm statistics.
+    ``cancelled(name)``: the parameters whose gradient a following norm
+    cancels (left out of the gradient check). Returns the kernel route's
     launches and a list of the checks that failed."""
-    tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
-                           iters=CMP_ITERS, num_steps=100)
-    batch = synthetic_batch(torch, CMP_B, CMP_HW,
-                            torch.Generator(device=DEVICE).manual_seed(1))
     lr = pkg.make_schedule(tcfg)(0)
 
     def step():
-        model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True))
-        model.load_state_dict(weights)
+        model = make_model()
         state = pkg.create_train_state(model.to(DEVICE), tcfg)
-        metrics = pkg.make_train_step(tcfg, alternate_corr=True)(state,
-                                                                  batch)
+        metrics = pkg.make_train_step(tcfg, **step_kw)(state, batch)
         # p.grad keeps the clipped gradient the update used
         return (metrics, model.state_dict(),
                 {n: p.grad for n, p in model.named_parameters()})
@@ -521,7 +553,7 @@ def train_against_plain(torch, pkg, weights):
     reset_counts(pkg.counters)
     kernel = step()
     launches = read_counts(pkg.counters)
-    with plain_corr_backward(pkg.corr_cuda):
+    with plain_backward(pkg):
         kernel_plain_bwd = step()
     mods = (pkg.corr_cuda, pkg.step_cuda, pkg.motion_cuda, pkg.gru_cuda,
             pkg.msda)
@@ -547,7 +579,7 @@ def train_against_plain(torch, pkg, weights):
             if name not in b[2]:        # downsample.1, an alias of norm3
                 continue
             g = b[2][name]
-            if not cancelled_by_norm(name):
+            if not cancelled(name):
                 rel = float((a[2][name] - g).abs().max() / g.abs().max())
                 worst["grad"] = max(worst["grad"], (rel, name))
             exact = g.abs() >= ADAM_EXACT
@@ -558,28 +590,31 @@ def train_against_plain(torch, pkg, weights):
         return worst
 
     problems = []
-    for what, key, bar in (("loss", "loss", LOSS_REL),
-                           ("grad_norm", "grad_norm", NORM_REL)):
+    for key, bar in (("loss", LOSS_REL), ("sparse_loss", LOSS_REL),
+                     ("grad_norm", NORM_REL)):
+        if key not in plain[0]:
+            continue
         a, b = kernel[0][key], plain[0][key]
         rel = abs(a - b) / abs(b)
-        print(f"train step kernel vs plain: {what} {a:.7g} vs {b:.7g}, "
+        print(f"{label} kernel vs plain: {key} {a:.7g} vs {b:.7g}, "
               f"relative difference {rel:.3e} (bar {bar:g})")
         if not (math.isfinite(a) and rel <= bar):
-            problems.append(f"train step {what}")
+            problems.append(f"{label} {key}")
     spread = compare(again, plain)
     moved = compare(perturbed, plain)
 
-    def check(label, got, base, bar, base_label):
+    def check(what, got, base, bar, base_label):
         limit = max(bar, SPREAD_MARGIN * base[0])
-        print(f"train step {label}: {got[0]:.3e} ({got[1]}); {base_label} "
+        print(f"{label} {what}: {got[0]:.3e} ({got[1]}); {base_label} "
               f"{base[0]:.3e} ({base[1]}); bar {limit:.3g}")
         if not got[0] <= limit:
-            problems.append(f"train step {label}")
+            problems.append(f"{label} {what}")
 
     insitu = compare(kernel_plain_bwd, kernel)
-    check("corr_bwd in situ (kernel route, its backward vs autograd "
-          "through the plain lookup), gradients max|diff| / max|plain|",
-          insitu["grad"], spread["grad"], GRAD_REL, "plain vs plain")
+    check("backward kernels in situ (kernel route, its backward vs "
+          "autograd through the plain versions), gradients max|diff| / "
+          "max|plain|", insitu["grad"], spread["grad"], GRAD_REL,
+          "plain vs plain")
     got = compare(kernel, plain)
     check("kernel vs plain, gradients max|diff| / max|plain| (the conv "
           "biases a norm cancels left out)", got["grad"], moved["grad"],
@@ -593,8 +628,43 @@ def train_against_plain(torch, pkg, weights):
     check("kernel vs plain, BN running statistics", got["bn"], spread["bn"],
           BN_BAR, "plain vs plain")
     if any(r[0]["skipped_steps"] for r in (kernel, plain)):
-        problems.append("the kernel-vs-plain train step was skipped")
+        problems.append(f"the kernel-vs-plain {label} was skipped")
     return launches, problems
+
+
+def train_against_plain(torch, pkg, weights):
+    """RAFT's train step (B=2, 184x248, iters=4, chairs defaults) from the
+    fixture weights against the plain versions (``step_against_plain``)."""
+    tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
+                           iters=CMP_ITERS, num_steps=100)
+    batch = synthetic_batch(torch, CMP_B, CMP_HW,
+                            torch.Generator(device=DEVICE).manual_seed(1))
+
+    def make_model():
+        model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True))
+        model.load_state_dict(weights)
+        return model
+
+    return step_against_plain(torch, pkg, "train step", make_model, tcfg,
+                              batch, cancelled_by_norm, alternate_corr=True)
+
+
+def sparse_train_against_plain(torch, pkg):
+    """SparseRAFT's train step at full OursConfig widths with dropout 0
+    (B=2, 352x480, ``sparse_lambda=0.1``), random weights from seed 1,
+    against the plain versions (``step_against_plain``)."""
+    tcfg = pkg.TrainConfig(model_family="sparse", batch_size=SPARSE_CMP_B,
+                           image_size=SPARSE_HW, num_steps=100,
+                           sparse_lambda=SPARSE_LAMBDA)
+    batch = synthetic_batch(torch, SPARSE_CMP_B, SPARSE_HW,
+                            torch.Generator(device=DEVICE).manual_seed(6))
+
+    def make_model():
+        return pkg.SparseRAFT(pkg.OursConfig(dropout=0.0)).init_weights(
+            torch.Generator().manual_seed(1))
+
+    return step_against_plain(torch, pkg, "sparse train step", make_model,
+                              tcfg, batch, sparse_cancelled_by_norm)
 
 
 def train_full_size(torch, pkg, weights_path):
@@ -648,6 +718,56 @@ def train_full_size(torch, pkg, weights_path):
             fail("a packed-weight cache was not refreshed after the "
                  "optimizer's updates")
     return state, tcfg, ms[TRAIN_WARMUP:], launches, peak_mib
+
+
+def sparse_train_full_size(torch, pkg, label, batch, enc, warmup, timed):
+    """SparseRAFT f32 at full OursConfig widths (``encoder_iterations``
+    ``enc``, dropout 0.1) through ``raft_tpu_torch.train.train`` at
+    352x480 with ``sparse_lambda=0.1``, random weights from the config's
+    seed, on shifted frames made on the card, ``warmup`` + ``timed`` steps
+    with every launch counter set to 0 just before. Returns (state, ms per
+    timed step, launches, peak MiB)."""
+    steps = warmup + timed
+    tcfg = pkg.TrainConfig(model_family="sparse", batch_size=batch,
+                           image_size=SPARSE_HW, num_steps=steps,
+                           sparse_lambda=SPARSE_LAMBDA)
+    cfg = pkg.OursConfig(encoder_iterations=enc)
+    loader = DeviceLoader(torch, steps, batch, SPARSE_HW, seed=7)
+    logged = []
+
+    class Logger:
+        def push(self, metrics, lr):
+            logged.append((metrics, lr))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(pkg.counters)
+    state = pkg.train(tcfg, cfg, dataloader=loader, device=DEVICE,
+                      logger=Logger())
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = read_counts(pkg.counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [1e3 * (b - a) for a, b in zip(loader.pulls,
+                                         loader.pulls[1:] + [end])]
+    if state.step != steps or len(logged) != steps:
+        fail(f"sparse train() [{label}] took {state.step} steps, expected "
+             f"{steps}")
+    for n, (m, lr) in enumerate(logged):
+        print(f"  step {n}: loss {m['loss']:.5f}, sparse_loss "
+              f"{m['sparse_loss']:.5f}, grad_norm {m['grad_norm']:.4f}, epe "
+              f"{m['epe']:.4f}, lr {lr:.4g}, {ms[n]:.1f} ms"
+              f"{' (warm-up)' if n < warmup else ''}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and not m["skipped_steps"]):
+            fail(f"sparse train step {n} [{label}] was not finite")
+    start = pkg.SparseRAFT(cfg).init_weights(
+        torch.Generator().manual_seed(tcfg.seed)).state_dict()
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach().cpu(), start[n])]
+    if still:
+        fail(f"{len(still)} SparseRAFT parameters did not change in "
+             f"training: {still[:3]}")
+    return state, tcfg, ms[warmup:], launches, peak_mib
 
 
 # Categories of a train step's device time (profile_train_step), in order
@@ -817,14 +937,10 @@ def msda_inputs(torch, rng, b, lq, d, m=8, p=4, levels=SPARSE_LEVELS):
     return value, loc, aw.reshape(b, lq, m, nl, p).contiguous()
 
 
-def msda_work(torch, value, levels, loc, aw):
-    """Operations and bytes of one MSDA call on these inputs: 2 D
-    operations for each in-range corner and 12 for each sample's corner
-    weights; the locations and weights read once, the output written once,
-    and each distinct value row (pixel, head) that an in-range corner
-    touches read once."""
+def msda_corners(torch, value, levels, loc):
+    """The in-range corners of every sample on these inputs, and the
+    distinct value rows (pixel, head) they touch."""
     b, s, m, d = value.shape
-    lq, p = loc.shape[1], loc.shape[4]
     corners, rows = 0, []
     start = 0
     bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1)
@@ -841,9 +957,37 @@ def msda_work(torch, value, levels, loc, aw):
                 pix = start + y * w + x
                 rows.append(((bi * s + pix) * m + mi)[ok])
         start += h * w
-    distinct = int(torch.unique(torch.cat(rows)).numel())
+    return corners, int(torch.unique(torch.cat(rows)).numel())
+
+
+def msda_work(torch, value, levels, loc, aw):
+    """Operations and bytes of one MSDA call on these inputs: 2 D
+    operations for each in-range corner and 12 for each sample's corner
+    weights; the locations and weights read once, the output written once,
+    and each distinct value row (pixel, head) that an in-range corner
+    touches read once."""
+    b, s, m, d = value.shape
+    lq = loc.shape[1]
+    corners, distinct = msda_corners(torch, value, levels, loc)
     flops = 2 * d * corners + 12 * aw.numel()
     nbytes = 4 * (loc.numel() + aw.numel() + b * lq * m * d + distinct * d)
+    return flops, nbytes
+
+
+def msda_bwd_work(torch, value, levels, loc, aw):
+    """Operations and bytes of one MSDA backward on these inputs: 4 D
+    operations for each in-range corner (the cotangent's dot with the
+    corner, the value gradient's product and add) and 32 for each sample
+    (corner weights, the weight and location gradients); the locations,
+    weights and cotangent read once, each distinct value row that an
+    in-range corner touches read once, and the three gradients written
+    once (d_value whole: the wrapper zeroes it)."""
+    b, s, m, d = value.shape
+    lq = loc.shape[1]
+    corners, distinct = msda_corners(torch, value, levels, loc)
+    flops = 4 * d * corners + 32 * aw.numel()
+    nbytes = 4 * (2 * loc.numel() + 2 * aw.numel() + b * lq * m * d
+                  + distinct * d + value.numel())
     return flops, nbytes
 
 
@@ -863,26 +1007,6 @@ def sparse_corr_inputs(torch, rng, b, h, w, c):
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     centers = torch.stack([gx, gy], -1)[None].expand(b, h, w, 2).contiguous()
     return f1, pyr, centers
-
-
-def fork_corr_work(torch, f1, pyr, centers, radius):
-    """corr_work for the fork lookup: every level sampled around the
-    centres themselves."""
-    b, h, w, c = f1.shape
-    win = 2 * radius + 1
-    steps = torch.arange(2 * radius + 2, device=centers.device)
-    neighbours = 0
-    for f2 in pyr:
-        xs = torch.floor(centers[..., 0:1]) - radius + steps
-        ys = torch.floor(centers[..., 1:2]) - radius + steps
-        nx = ((xs >= 0) & (xs < f2.shape[2])).sum(-1)
-        ny = ((ys >= 0) & (ys < f2.shape[1])).sum(-1)
-        neighbours += int((nx * ny).sum())
-    outputs = b * h * w * len(pyr) * win * win
-    flops = 2 * c * neighbours + 8 * outputs
-    nbytes = 4 * (f1.numel() + sum(f.numel() for f in pyr) + centers.numel()
-                  + outputs)
-    return flops, nbytes
 
 
 def sparse_frames(batch, seed):
@@ -940,23 +1064,27 @@ def sparse_against_plain(torch, pkg, predictor, frames, flow_kernel, label):
     return None if got <= limit else f"sparse [{label}] kernel vs plain"
 
 
-# Categories of a sparse forward's device time by kernel name, in order of
-# precedence (profile_sparse).
+# Categories of a sparse forward's or train step's device time by kernel
+# name, in order of precedence (profile_by_name).
 SPARSE_SPLIT = (
     ("msda_fwd", ("msda_fwd_kernel",)),
+    ("msda_bwd", ("msda_bwd_kernel",)),
     ("corr_fwd", ("corr_fwd_kernel",)),
-    ("batch, group and layer norms", ("norm", "bn_fw")),
+    ("corr_bwd", ("corr_bwd_kernel",)),
+    ("batch, group and layer norms", ("norm", "bn_fw", "bn_bw")),
     ("cuDNN convolutions (implicit GEMM and FFT)",
-     ("fprop", "fft", "pointwise_mult_and_sum_complex", "convolve",
-      "cudnn", "winograd")),
+     ("fprop", "dgrad", "wgrad", "fft", "pointwise_mult_and_sum_complex",
+      "convolve", "cudnn", "winograd")),
     ("host-to-device copies", ("memcpy htod",)))
+SPARSE_KERNELS = ("msda_fwd_kernel", "corr_fwd_kernel", "msda_bwd_kernel",
+                  "corr_bwd_kernel")
 
 
-def profile_sparse(torch, predictor, frames, top: int = 10):
-    """One sparse forward under torch.profiler: device busy share of the
-    (profiled, so inflated) wall time, the shares of the device time of the
-    corr and MSDA kernels and the top device operations by time. Returns
-    the MSDA and corr shares."""
+def profile_by_name(torch, run, label, what, top: int = 10):
+    """``run()`` under torch.profiler: device busy share of the (profiled,
+    so inflated) wall time, the shares of the device time of the corr and
+    MSDA kernels, the top device operations by time and the split by
+    SPARSE_SPLIT. Returns the kernels' shares."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -964,7 +1092,8 @@ def profile_sparse(torch, predictor, frames, top: int = 10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_batch(*frames)
+        run()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = defaultdict(lambda: [0.0, 0])
     events = device_events(torch, prof)
@@ -973,20 +1102,19 @@ def profile_sparse(torch, predictor, frames, top: int = 10):
         by_name[e.name][1] += 1
     device_ms = sum(t for t, _ in by_name.values())
     if not device_ms:
-        print("sparse profile: the profiler recorded no device time (not "
-              "measured)")
+        print(f"{label}: the profiler recorded no device time (not "
+              f"measured)")
         return {}
     busy = busy_ms(events)
-    print_overlaps("sparse profile", events, device_ms, busy)
+    print_overlaps(label, events, device_ms, busy)
     shares = {}
-    for kernel in ("msda_fwd_kernel", "corr_fwd_kernel"):
+    for kernel in SPARSE_KERNELS:
         ms = sum(t for name, (t, _) in by_name.items() if kernel in name)
         n = sum(c for name, (_, c) in by_name.items() if kernel in name)
         shares[kernel] = ms / device_ms
-        print(f"sparse profile: {kernel}: {n} launches, {ms:.3f} ms, "
+        print(f"{label}: {kernel}: {n} launches, {ms:.3f} ms, "
               f"{100 * ms / device_ms:.1f}% of device time")
-    print(f"sparse profile: one forward at the defaults (B={SPARSE_RUNS[0][1]}"
-          f", {SPARSE_HW[0]}x{SPARSE_HW[1]}): device busy {busy:.2f} ms of "
+    print(f"{label}: {what}: device busy {busy:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler "
           f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
           f"{sum(n for _, n in by_name.values())} device launches, "
@@ -1002,7 +1130,7 @@ def profile_sparse(torch, predictor, frames, top: int = 10):
                    "elementwise, softmax, reductions, GEMMs of the tokens")
         split[cat][0] += ms
         split[cat][1] += n
-    print("sparse profile by kernel name:")
+    print(f"{label} by kernel name:")
     for cat, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% {n:5d}x  {cat}")
     return shares
@@ -1044,22 +1172,33 @@ def sparse_fixture_check(torch, pkg, counters):
     return problem
 
 
-def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius):
-    """corr_fwd at the fork lookup's three token levels (B=8 at 352x480):
-    the kernel's and the plain version's ms a launch and the bound, keyed
-    by C, for the corr_fwd row."""
+def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
+                      backward=False):
+    """corr_fwd (or with ``backward`` corr_bwd, for a random cotangent) at
+    the fork lookup's three token levels (B=8 at 352x480): the kernel's
+    and the plain version's ms a launch and the bound, keyed by C, for the
+    kernel's row."""
     out = {"ms_sparse": {}, "plain_ms_sparse": {}, "bound_ms_sparse": {}}
     for c, (h, w) in sparse_corr.items():
         f1, pyr, centers = sparse_corr_inputs(torch, rng, SPARSE_RUNS[0][1],
                                               h, w, c)
+        if backward:
+            g = torch.randn(*centers.shape[:3],
+                            len(pyr) * (2 * radius + 1) ** 2, device="cuda")
+            args = (f1, pyr, centers, g, radius)
+            kernel = corr_cuda.windowed_correlation_bwd_cuda
+            plain = corr_cuda.windowed_correlation_bwd_plain
+            work = corr_bwd_work(torch, f1, pyr, centers, radius, False)
+        else:
+            args = (f1, pyr, centers, radius)
+            kernel = corr_cuda.windowed_correlation_cuda
+            plain = corr_cuda.windowed_correlation_fused_plain
+            work = corr_work(torch, f1, pyr, centers, radius, False)
         out["ms_sparse"][str(c)] = time_ms(
-            torch, lambda: corr_cuda.windowed_correlation_cuda(
-                f1, pyr, centers, radius, rescale=False))
+            torch, lambda: kernel(*args, rescale=False))
         out["plain_ms_sparse"][str(c)] = time_ms(
-            torch, lambda: corr_cuda.windowed_correlation_fused_plain(
-                f1, pyr, centers, radius, rescale=False), n=10)
-        out["bound_ms_sparse"][str(c)] = bound(*fork_corr_work(
-            torch, f1, pyr, centers, radius))[0]
+            torch, lambda: plain(*args, rescale=False), n=10)
+        out["bound_ms_sparse"][str(c)] = bound(*work)[0]
     return out
 
 
@@ -1076,6 +1215,7 @@ def main():
                                          load_predictor, use_float32_math,
                                          validate_golden)
     from raft_tpu_torch.models import corr
+    from raft_tpu_torch.models.ours import SparseRAFT
     from raft_tpu_torch.models.raft import RAFT
     from raft_tpu_torch.ops import (build, corr_cuda, gru_cuda, motion_cuda,
                                     msda, msda_cuda, sampling, step_cuda)
@@ -1124,8 +1264,9 @@ def main():
 
     # -- kernels against their plain versions ------------------------------
     err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
-           "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0}
-    corr_bwd_rel = 0.0
+           "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0,
+           "msda_bwd": 0.0}
+    corr_bwd_rel = msda_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
         for label, (h, w) in feat.items():
@@ -1229,6 +1370,53 @@ def main():
             if not d <= TOL:
                 fail(f"msda_fwd disagrees with its plain version at the "
                      f"{label} shape: {d:.3e}")
+    # the sparse family's backward kernels against autograd through their
+    # plain versions (outside inference mode): MSDA at both shapes, the
+    # fork lookup at its three token levels; each gradient within
+    # CORR_BWD_REL of the largest plain one
+    for label, (b, lq, d_head) in msda_shapes.items():
+        value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
+        g = torch.randn(b, lq, 8 * d_head, device="cuda")
+        got = msda_cuda.ms_deform_attn_bwd_cuda(value, SPARSE_LEVELS, loc,
+                                                aw, g)
+        want = msda.ms_deform_attn_bwd_plain(value, SPARSE_LEVELS, loc, aw,
+                                             g)
+        torch.cuda.synchronize()
+        for what, a, b_ in zip(("d_value", "d_loc", "d_aw"), got, want):
+            d = float((a - b_).abs().max())
+            rel = d / float(b_.abs().max())
+            err["msda_bwd"] = max(err["msda_bwd"], d)
+            msda_bwd_rel = max(msda_bwd_rel, rel)
+            print(f"msda_bwd {what} {label} B={b} Lq={lq} M=8 D={d_head} "
+                  f"L=6 P=4: max|kernel - plain| = {d:.3e}, / max|plain| = "
+                  f"{rel:.3e} (bar {CORR_BWD_REL:g})")
+            if not rel <= CORR_BWD_REL:
+                fail(f"msda_bwd {what} disagrees with autograd through the "
+                     f"plain version at the {label} shape: {rel:.3e}")
+    for c, (h, w) in sparse_corr.items():
+        f1, pyr, centers = sparse_corr_inputs(torch, rng, SPARSE_RUNS[0][1],
+                                              h, w, c)
+        g = torch.randn(SPARSE_RUNS[0][1], h, w,
+                        len(pyr) * (2 * radius + 1) ** 2, device="cuda")
+        got = corr_cuda.windowed_correlation_bwd_cuda(
+            f1, pyr, centers, g, radius, rescale=False)
+        want = corr_cuda.windowed_correlation_bwd_plain(
+            f1, pyr, centers, g, radius, rescale=False)
+        torch.cuda.synchronize()
+        for what, a, b_ in zip(["df1"] + [f"df2 level {lv}"
+                                          for lv in range(len(pyr))],
+                               (got[0], *got[1]), (want[0], *want[1])):
+            d = float((a - b_).abs().max())
+            rel = d / float(b_.abs().max())
+            err["corr_bwd"] = max(err["corr_bwd"], d)
+            corr_bwd_rel = max(corr_bwd_rel, rel)
+            print(f"corr_bwd fork lookup {what} C={c} B={SPARSE_RUNS[0][1]} "
+                  f"{h}x{w} (rescale=False): max|kernel - plain| = "
+                  f"{d:.3e}, / max|plain| = {rel:.3e} (bar "
+                  f"{CORR_BWD_REL:g})")
+            if not rel <= CORR_BWD_REL:
+                fail(f"corr_bwd {what} disagrees with autograd through the "
+                     f"plain lookup at the fork lookup, C={c}: {rel:.3e}")
 
     # -- goldens through three routes --------------------------------------
     with open(os.path.join(ASSETS_DIR, "golden", "manifest.json")) as f:
@@ -1261,7 +1449,8 @@ def main():
                 "update_step": (step_cuda, "launches"),
                 "motion_fwd": (motion_cuda, "launches"),
                 "sepconv_gru": (gru_cuda, "launches"),
-                "msda_fwd": (msda_cuda, "launches")}
+                "msda_fwd": (msda_cuda, "launches"),
+                "msda_bwd": (msda_cuda, "bwd_launches")}
     serve = load_predictor(weights, iters=SINTEL_ITERS)
     torch.cuda.reset_peak_memory_stats()
     times, launches = serve_pairs(torch, serve, padder, frames, counters)
@@ -1289,11 +1478,12 @@ def main():
 
     pkg = SimpleNamespace(
         RAFT=RAFT, RAFTConfig=RAFTConfig, TrainConfig=TrainConfig,
+        SparseRAFT=SparseRAFT, OursConfig=OursConfig,
         create_train_state=create_train_state,
         make_train_step=make_train_step, make_schedule=make_schedule,
         load_npz=load_npz, train=train, corr_cuda=corr_cuda,
         step_cuda=step_cuda, motion_cuda=motion_cuda, gru_cuda=gru_cuda,
-        msda=msda, load_predictor=load_predictor,
+        msda=msda, msda_cuda=msda_cuda, load_predictor=load_predictor,
         SPARSE_GOLDEN=SPARSE_GOLDEN, counters=counters)
 
     # -- serve SparseRAFT at full OursConfig widths ------------------------
@@ -1351,6 +1541,35 @@ def main():
                    {"corr_fwd": TRAIN_ITERS, "corr_bwd": TRAIN_ITERS,
                     "update_step": TRAIN_ITERS, "motion_fwd": 0,
                     "sepconv_gru": 0}, unit="step")
+
+    # -- train SparseRAFT: one step against the plain versions, then at
+    #    the fork's training resolution ---------------------------------
+    sparse_cmp_launches, sparse_step_problems = sparse_train_against_plain(
+        torch, pkg)
+    problems += sparse_step_problems
+    ours = OursConfig()
+    per_step = {"corr_fwd": 2 * ours.num_feature_levels,
+                "corr_bwd": 2 * ours.num_feature_levels,
+                "msda_fwd": ours.outer_iterations,
+                "msda_bwd": ours.outer_iterations}
+    check_launches(sparse_cmp_launches, 1, per_step, unit="step")
+    sparse_train = {}
+    for label, batch, enc, warmup, timed in SPARSE_TRAIN_RUNS:
+        st, stcfg, sms, sl, speak = sparse_train_full_size(
+            torch, pkg, label, batch, enc, warmup, timed)
+        ms = statistics.median(sms)
+        print(f"train sparse [{label}]: SparseRAFT f32, OursConfig widths "
+              f"(dropout {ours.dropout}, encoder_iterations {enc}), "
+              f"sparse_lambda {SPARSE_LAMBDA}, random weights from seed "
+              f"{stcfg.seed}, B={batch} {SPARSE_HW[0]}x{SPARSE_HW[1]}, "
+              f"{timed} timed steps after {warmup}: median {ms:.2f} ms/step "
+              f"(all {', '.join(f'{t:.2f}' for t in sms)}), "
+              f"{1e3 * batch / ms:.2f} samples/s; peak memory "
+              f"{speak:.1f} MiB")
+        want = dict(per_step, msda_fwd=ours.outer_iterations + 2 * enc,
+                    msda_bwd=ours.outer_iterations + 2 * enc)
+        check_launches(sl, warmup + timed, want, unit="step")
+        sparse_train[label] = (st, stcfg, sl, warmup + timed)
     # each kernel's launches on the path that runs it
     path_of = {"corr_fwd": ("step", launches, SERVE_PAIRS, "pair"),
                "update_step": ("step", launches, SERVE_PAIRS, "pair"),
@@ -1358,7 +1577,13 @@ def main():
                "sepconv_gru": ("chain", chain_launches, CHAIN_PAIRS, "pair"),
                "corr_bwd": ("train", train_launches, steps, "step"),
                "msda_fwd": ("sparse", sparse_launches[SPARSE_RUNS[0][0]],
-                            SPARSE_TIMED, "forward")}
+                            SPARSE_TIMED, "forward"),
+               "msda_bwd": ("sparse train",
+                            sparse_train[SPARSE_TRAIN_RUNS[0][0]][2],
+                            sparse_train[SPARSE_TRAIN_RUNS[0][0]][3],
+                            "step")}
+    sparse_train_counts = sparse_train[SPARSE_TRAIN_RUNS[0][0]][2]
+    sparse_train_steps = sparse_train[SPARSE_TRAIN_RUNS[0][0]][3]
 
     # -- kernel times at the Sintel shape ----------------------------------
     kernels = []
@@ -1372,6 +1597,8 @@ def main():
             "replaces": replaces, "path": path, "launches": counts[name],
             f"launches_per_{unit}": counts[name] / units,
             "train_launches_per_step": train_launches[name] / steps,
+            "sparse_train_launches_per_step":
+                sparse_train_counts[name] / sparse_train_steps,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, **extra})
@@ -1407,7 +1634,9 @@ def main():
           bound_ms_train_shape=train_bound_ms,
           ms_fwd_train_shape=time_ms(
               torch, lambda: corr_cuda.windowed_correlation_cuda(
-                  tf1, tpyr, tcoords, radius)))
+                  tf1, tpyr, tcoords, radius)),
+          **sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
+                              backward=True))
 
     with torch.inference_mode():
         h, w = feat["sintel"]
@@ -1486,6 +1715,29 @@ def main():
               shape_encoder="encoder: B=4 Lq=6930 M=8 D=8 L=6 P=4",
               launches_per_forward_encoder=sparse_launches[enc_label][
                   "msda_fwd"] / SPARSE_TIMED)
+    # msda_bwd at both shapes (its plain version needs autograd, so outside
+    # inference mode)
+    msda_bwd_times = {}
+    for label, (b, lq, d_head) in msda_shapes.items():
+        value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
+        g = torch.randn(b, lq, 8 * d_head, device="cuda")
+        msda_bwd_times[label] = (
+            time_ms(torch, lambda: msda_cuda.ms_deform_attn_bwd_cuda(
+                value, SPARSE_LEVELS, loc, aw, g)),
+            time_ms(torch, lambda: msda.ms_deform_attn_bwd_plain(
+                value, SPARSE_LEVELS, loc, aw, g), n=10),
+            msda_bwd_work(torch, value, SPARSE_LEVELS, loc, aw))
+    enc_train = sparse_train[SPARSE_TRAIN_RUNS[1][0]]
+    entry("msda_bwd", "raft_tpu_torch/csrc/msda_bwd.cu",
+          "raft_tpu/ops/msda_pallas.py:124", *msda_bwd_times["decoder"],
+          None, max_rel_err=msda_bwd_rel,
+          shape="decoder: B=8 Lq=100 M=8 D=16 L=6 P=4",
+          ms_encoder=msda_bwd_times["encoder"][0],
+          plain_ms_encoder=msda_bwd_times["encoder"][1],
+          bound_ms_encoder=bound(*msda_bwd_times["encoder"][2])[0],
+          bound_by_encoder=bound(*msda_bwd_times["encoder"][2])[1],
+          shape_encoder="encoder: B=4 Lq=6930 M=8 D=8 L=6 P=4",
+          launches_per_step_encoder=enc_train[2]["msda_bwd"] / enc_train[3])
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         print(f"{k['name']}: {k['ms']:.4f} ms a launch, bound "
@@ -1506,12 +1758,24 @@ def main():
         print(f"corr_fwd fork lookup C={c}: {cf['ms_sparse'][str(c)]:.4f} ms "
               f"a launch, bound {cf['bound_ms_sparse'][str(c)]:.4f} ms, plain "
               f"{cf['plain_ms_sparse'][str(c)]:.4f} ms")
+    for c in sparse_corr:
+        print(f"corr_bwd fork lookup C={c}: {cb['ms_sparse'][str(c)]:.4f} ms "
+              f"a launch, bound {cb['bound_ms_sparse'][str(c)]:.4f} ms, plain "
+              f"{cb['plain_ms_sparse'][str(c)]:.4f} ms")
+    mb = named["msda_bwd"]
+    print(f"msda_bwd at the encoder shape: {mb['ms_encoder']:.4f} ms a "
+          f"launch, bound {mb['bound_ms_encoder']:.4f} ms "
+          f"({mb['bound_by_encoder']}), plain {mb['plain_ms_encoder']:.4f} ms")
     md = named["msda_fwd"]
     print(f"msda_fwd at the encoder shape: {md['ms_encoder']:.4f} ms a "
           f"launch, bound {md['bound_ms_encoder']:.4f} ms "
           f"({md['bound_by_encoder']}), plain {md['plain_ms_encoder']:.4f} ms")
     profile_pair(torch, serve, *frames[1])
-    sparse_shares = profile_sparse(torch, *sparse_preds[SPARSE_RUNS[0][0]])
+    pred, frames_b = sparse_preds[SPARSE_RUNS[0][0]]
+    sparse_shares = profile_by_name(
+        torch, lambda: pred.predict_batch(*frames_b), "sparse profile",
+        f"one forward at the defaults (B={SPARSE_RUNS[0][1]}, "
+        f"{SPARSE_HW[0]}x{SPARSE_HW[1]})")
     if sparse_shares:
         named["msda_fwd"]["device_share_sparse_forward"] = sparse_shares[
             "msda_fwd_kernel"]
@@ -1521,6 +1785,19 @@ def main():
         torch, make_train_step(tcfg, alternate_corr=True), state,
         synthetic_batch(torch, TRAIN_B, TRAIN_HW,
                         torch.Generator(device="cuda").manual_seed(3)))
+    label, batch = SPARSE_TRAIN_RUNS[0][:2]
+    st, stcfg, _, _ = sparse_train[label]
+    sparse_step = make_train_step(stcfg)
+    sbatch = synthetic_batch(torch, batch, SPARSE_HW,
+                             torch.Generator(device="cuda").manual_seed(8))
+    train_shares = profile_by_name(
+        torch, lambda: sparse_step(st, sbatch), "sparse train profile",
+        f"one train step at the defaults (B={batch}, "
+        f"{SPARSE_HW[0]}x{SPARSE_HW[1]}, sparse_lambda {SPARSE_LAMBDA})")
+    for name in ("msda_fwd", "msda_bwd", "corr_fwd", "corr_bwd"):
+        if train_shares:
+            named[name]["device_share_sparse_train_step"] = train_shares[
+                f"{name}_kernel"]
     if problems:
         fail("kernel and plain train steps disagree: " + "; ".join(problems))
     if sparse_problems:

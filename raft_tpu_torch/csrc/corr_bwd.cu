@@ -8,7 +8,9 @@
 // wrapper returns None for them), the contract of `_windowed_bwd` and of the
 // reference's alt_cuda_corr extension.
 //
-// Forward, per query q and level l: with (cx, cy) = coords[q] / 2^l, the
+// Forward, per query q and level l: with (cx, cy) = coords[q] / 2^l (or
+// coords[q] itself with rescale = 0, the sparse family's lookup; the
+// forward's per-level centre rule exactly), the
 // dots d[n] = f1[q] . f2_l[n] over the (2r+2)^2 integer neighbours n of
 // (floor(cx) - r, floor(cy) - r), zero where n lies outside the level, and
 // out[k = i*(2r+1) + j] = sum of the four bilinear corner weights times d
@@ -31,7 +33,7 @@
 // one warp per query, lanes over C as in the forward. The warp keeps f1[q]
 // and its df1 sum in registers (C/32 floats a lane each), computes the
 // (2r+2)^2 coefficients of a level into shared memory, then walks the
-// in-range neighbours: a float4 load of f2_l[n] per lane feeds df1, and
+// in-range neighbours: a vector load of f2_l[n] per lane feeds df1, and
 // df2_l[n] takes the product by f32 atomic adds. Queries overlap in most of
 // their neighbours, so df2 has no owner to sum it without atomics; their
 // order varies from run to run, so df2 is not bit-reproducible. The TPU
@@ -39,7 +41,10 @@
 // which has no counterpart on 132 SMs running blocks in no order. The
 // atomics bound the kernel, so each lane adds a float4 with one 16-byte
 // vector atomicAdd (sm_90) rather than four scalar ones: about four times
-// faster on the card (PERF.md, PR 3).
+// faster on the card (PERF.md's kernel table). The lanes take every C the
+// forward takes, in the forward's vectors: float4 for C a multiple of 128,
+// float2 with 8-byte atomicAdd (sm_90) for C = 64 and 192 (the sparse
+// family's middle level), and masked floats for another C under 128.
 
 #include <cuda_runtime.h>
 
@@ -58,24 +63,43 @@ struct LevelGrads {
   float* ptr[kMaxLevels];
 };
 
-__device__ __forceinline__ void fma4(float4& acc, const float s, const float4 v) {
+__device__ __forceinline__ void fma(float4& acc, const float s, const float4 v) {
   acc.x += s * v.x;
   acc.y += s * v.y;
   acc.z += s * v.z;
   acc.w += s * v.w;
 }
 
-// R: window radius. NV: float4s of fmap1 held by each lane (C = 128 * NV).
-template <int R, int NV>
+__device__ __forceinline__ void fma(float2& acc, const float s, const float2 v) {
+  acc.x += s * v.x;
+  acc.y += s * v.y;
+}
+
+__device__ __forceinline__ void fma(float& acc, const float s, const float v) { acc += s * v; }
+
+__device__ __forceinline__ float4 scaled(const float s, const float4 v) {
+  return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
+}
+
+__device__ __forceinline__ float2 scaled(const float s, const float2 v) {
+  return make_float2(s * v.x, s * v.y);
+}
+
+__device__ __forceinline__ float scaled(const float s, const float v) { return s * v; }
+
+// R: window radius. Vec: float4, float2 or float, the load of one lane. NV:
+// Vecs of fmap1 held by each lane (C = 32 * NV * floats in a Vec, or with
+// kMasked the runtime `channels` < 32 * NV, the lanes past it idle).
+template <int R, int NV, typename Vec, bool kMasked>
 __global__ void __launch_bounds__(kWarps * 32)
 corr_bwd_kernel(const float* __restrict__ fmap1, const Levels lv,
                 const int num_levels, const float* __restrict__ coords,
                 const float* __restrict__ grad, float* __restrict__ df1,
                 const LevelGrads dlv, const int batch, const int queries,
-                const float inv_scale) {
+                const int channels, const int rescale, const float inv_scale) {
   constexpr int D = 2 * R + 2;  // integer neighbours per axis
   constexpr int WIN = 2 * R + 1;
-  constexpr int C = 128 * NV;
+  const int C = kMasked ? channels : 32 * NV * (int)(sizeof(Vec) / sizeof(float));
   __shared__ float coef_all[kWarps][D * D];
 
   const int warp = threadIdx.x >> 5;
@@ -85,13 +109,13 @@ corr_bwd_kernel(const float* __restrict__ fmap1, const Levels lv,
   const int b = (int)(q / queries);
   float* coef = coef_all[warp];
 
-  float4 a[NV];
-  float4 acc[NV];
-  const float4* f1 = reinterpret_cast<const float4*>(fmap1 + q * C);
+  Vec a[NV];
+  Vec acc[NV];
+  const Vec* f1 = reinterpret_cast<const Vec*>(fmap1 + q * C);
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    a[v] = __ldg(f1 + lane + 32 * v);
-    acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+    a[v] = (!kMasked || lane + 32 * v < C) ? __ldg(f1 + lane + 32 * v) : Vec{};
+    acc[v] = Vec{};
   }
 
   const float qx = coords[2 * q];
@@ -99,8 +123,9 @@ corr_bwd_kernel(const float* __restrict__ fmap1, const Levels lv,
   const float* gq = grad + q * (long long)(num_levels * WIN * WIN);
 
   for (int l = 0; l < num_levels; ++l) {
-    const float cx = qx / (float)(1 << l);
-    const float cy = qy / (float)(1 << l);
+    const float lvl_div = rescale ? (float)(1 << l) : 1.f;
+    const float cx = qx / lvl_div;
+    const float cy = qy / lvl_div;
     const float fx = floorf(cx);
     const float fy = floorf(cy);
     const float dx = cx - fx;
@@ -143,50 +168,66 @@ corr_bwd_kernel(const float* __restrict__ fmap1, const Levels lv,
         const float c = coef[j * D + i];
         if (xx < 0 || xx >= w2 || c == 0.f) continue;
         const long long off = ((long long)yy * w2 + xx) * C;
-        const float4* p = reinterpret_cast<const float4*>(f2 + off);
-        float* o = d2 + off;
+        const Vec* p = reinterpret_cast<const Vec*>(f2 + off);
+        Vec* o = reinterpret_cast<Vec*>(d2 + off);
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
-          fma4(acc[v], c, __ldg(p + lane + 32 * v));
-          atomicAdd(reinterpret_cast<float4*>(o) + lane + 32 * v,
-                    make_float4(c * a[v].x, c * a[v].y, c * a[v].z, c * a[v].w));
+          if (!kMasked || lane + 32 * v < C) {
+            fma(acc[v], c, __ldg(p + lane + 32 * v));
+            atomicAdd(o + lane + 32 * v, scaled(c, a[v]));
+          }
         }
       }
     }
     __syncwarp();  // coef is rewritten by the next level
   }
 
-  float4* out = reinterpret_cast<float4*>(df1 + q * C);
+  Vec* out = reinterpret_cast<Vec*>(df1 + q * C);
 #pragma unroll
-  for (int v = 0; v < NV; ++v) out[lane + 32 * v] = acc[v];
+  for (int v = 0; v < NV; ++v) {
+    if (!kMasked || lane + 32 * v < C) out[lane + 32 * v] = acc[v];
+  }
 }
 
-template <int R>
-cudaError_t launch_radius(int nv, dim3 grid, cudaStream_t stream, const float* fmap1,
-                          const Levels& lv, int num_levels, const float* coords,
-                          const float* grad, float* df1, const LevelGrads& dlv,
-                          int batch, int queries, float inv_scale) {
-  switch (nv) {
-    case 1:
-      corr_bwd_kernel<R, 1><<<grid, kWarps * 32, 0, stream>>>(
-          fmap1, lv, num_levels, coords, grad, df1, dlv, batch, queries, inv_scale);
-      break;
-    case 2:
-      corr_bwd_kernel<R, 2><<<grid, kWarps * 32, 0, stream>>>(
-          fmap1, lv, num_levels, coords, grad, df1, dlv, batch, queries, inv_scale);
-      break;
-    case 3:
-      corr_bwd_kernel<R, 3><<<grid, kWarps * 32, 0, stream>>>(
-          fmap1, lv, num_levels, coords, grad, df1, dlv, batch, queries, inv_scale);
-      break;
-    case 4:
-      corr_bwd_kernel<R, 4><<<grid, kWarps * 32, 0, stream>>>(
-          fmap1, lv, num_levels, coords, grad, df1, dlv, batch, queries, inv_scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int R, int NV, typename Vec, bool kMasked>
+cudaError_t launch(dim3 grid, cudaStream_t stream, const float* fmap1, const Levels& lv,
+                   int num_levels, const float* coords, const float* grad, float* df1,
+                   const LevelGrads& dlv, int batch, int queries, int channels,
+                   int rescale, float inv_scale) {
+  corr_bwd_kernel<R, NV, Vec, kMasked><<<grid, kWarps * 32, 0, stream>>>(
+      fmap1, lv, num_levels, coords, grad, df1, dlv, batch, queries, channels, rescale,
+      inv_scale);
   return cudaGetLastError();
+}
+
+// The forward's lanes (csrc/corr_fwd.cu): C a multiple of 128: NV = C / 128
+// float4s a lane; C = 64 or 192: NV = C / 64 float2s a lane; another C under
+// 128: NV = ceil(C / 32) masked floats a lane.
+template <int R>
+cudaError_t launch_radius(int channels, dim3 grid, cudaStream_t stream, const float* fmap1,
+                          const Levels& lv, int num_levels, const float* coords,
+                          const float* grad, float* df1, const LevelGrads& dlv, int batch,
+                          int queries, int rescale, float inv_scale) {
+#define CORR_LAUNCH(NV, VEC, MASKED)                                                   \
+  launch<R, NV, VEC, MASKED>(grid, stream, fmap1, lv, num_levels, coords, grad, df1, dlv, \
+                             batch, queries, channels, rescale, inv_scale)
+  switch (channels) {
+    case 64: return CORR_LAUNCH(1, float2, false);
+    case 128: return CORR_LAUNCH(1, float4, false);
+    case 192: return CORR_LAUNCH(3, float2, false);
+    case 256: return CORR_LAUNCH(2, float4, false);
+    case 384: return CORR_LAUNCH(3, float4, false);
+    case 512: return CORR_LAUNCH(4, float4, false);
+    default: break;
+  }
+  if (channels < 1 || channels >= 128) return cudaErrorInvalidValue;
+  switch ((channels + 31) / 32) {
+    case 1: return CORR_LAUNCH(1, float, true);
+    case 2: return CORR_LAUNCH(2, float, true);
+    case 3: return CORR_LAUNCH(3, float, true);
+    default: return CORR_LAUNCH(4, float, true);
+  }
+#undef CORR_LAUNCH
 }
 
 }  // namespace
@@ -194,18 +235,20 @@ cudaError_t launch_radius(int nv, dim3 grid, cudaStream_t stream, const float* f
 // fmap1 (B, H, W, C), level l (B, h_l, w_l, C), coords (B, H, W, 2) at level-0
 // scale, grad (B, H, W, L * (2r+1)^2), df1 (B, H, W, C) and dlevel l
 // (B, h_l, w_l, C): all float32, contiguous, 16-byte aligned; each dlevel
-// must hold zeros (the kernel adds into it). C is 128, 256, 384 or 512;
-// radius is 3 or 4; 1 <= L <= 4. inv_scale is 1/sqrt(C), or 1 without the
-// scale. Returns a cudaError_t (0 on success); launches on `stream`.
+// must hold zeros (the kernel adds into it). C is 128, 192, 256, 384, 512 or
+// under 128; radius is 3 or 4; 1 <= L <= 4; rescale 1 samples level l
+// around coords / 2^l, 0 around coords. inv_scale is 1/sqrt(C), or 1
+// without the scale. Returns a cudaError_t (0 on success); launches on
+// `stream`.
 extern "C" int raft_corr_bwd(const void* fmap1, const void* level0, const void* level1,
                              const void* level2, const void* level3, int h0, int w0,
                              int h1, int w1, int h2, int w2, int h3, int w3,
                              int num_levels, const void* coords, const void* grad,
                              void* df1, void* dlevel0, void* dlevel1, void* dlevel2,
                              void* dlevel3, int batch, int queries, int channels,
-                             int radius, float inv_scale, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || channels % 128 != 0 ||
-      channels < 128 || channels > 512 || batch < 0 || queries < 0) {
+                             int radius, int rescale, float inv_scale, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || channels < 1 || batch < 0 ||
+      queries < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if ((long long)batch * queries == 0) return 0;
@@ -228,14 +271,13 @@ extern "C" int raft_corr_bwd(const void* fmap1, const void* level0, const void* 
   const float* c = static_cast<const float*>(coords);
   const float* g = static_cast<const float*>(grad);
   float* d1 = static_cast<float*>(df1);
-  const int nv = channels / 128;
   cudaError_t err;
   if (radius == 4) {
-    err = launch_radius<4>(nv, grid, s, f1, lv, num_levels, c, g, d1, dlv, batch, queries,
-                           inv_scale);
+    err = launch_radius<4>(channels, grid, s, f1, lv, num_levels, c, g, d1, dlv, batch,
+                           queries, rescale, inv_scale);
   } else if (radius == 3) {
-    err = launch_radius<3>(nv, grid, s, f1, lv, num_levels, c, g, d1, dlv, batch, queries,
-                           inv_scale);
+    err = launch_radius<3>(channels, grid, s, f1, lv, num_levels, c, g, d1, dlv, batch,
+                           queries, rescale, inv_scale);
   } else {
     err = cudaErrorInvalidValue;
   }

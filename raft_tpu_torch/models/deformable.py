@@ -8,6 +8,13 @@ layer (deformable self-attention, FFN) and the token ``MLP``.
 Tokens are (B, N, C). The numerics follow flax: ``nn.gelu`` is the tanh
 approximation, ``LayerNorm`` has eps 1e-6, and ``GroupNorm`` on tokens
 normalises over the tokens and the group's channels together.
+
+Dropout follows flax's ``nn.Dropout`` at the JAX package's five sites: the
+two of the FFN, the decoder's self-attention weights and its two
+pre-residual dropouts, the encoder layer's pre-residual one. Every layer's
+``forward`` takes ``generator``: ``None`` is flax's ``deterministic=True``
+(no dropout), a ``torch.Generator`` draws the keep masks from it. There is
+no global random state.
 """
 
 from __future__ import annotations
@@ -23,6 +30,23 @@ from raft_tpu_torch.models.extractor import gelu
 from raft_tpu_torch.ops import msda
 
 FLAX_LAYER_NORM_EPS = 1e-6
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            mask_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)``: keep each entry with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``; the identity
+    when ``generator`` is None (deterministic) or ``rate`` is 0.
+    ``mask_shape`` (broadcastable to ``x``) shares one keep mask across the
+    axes where it has size 1, as flax's broadcast dims do."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(tuple(mask_shape or x.shape), generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), device=x.device,
+                                                        dtype=x.dtype))
 
 
 class TokenGroupNorm(nn.GroupNorm):
@@ -117,39 +141,48 @@ class MSDeformAttn(nn.Module):
 
 
 class _FFN(nn.Module):
-    """Linear, activation, linear, residual and LayerNorm (dropout is
-    training's and not ported)."""
+    """Linear, activation, dropout, linear, dropout, residual and
+    LayerNorm."""
 
-    def __init__(self, d_model: int, d_ffn: int, activation: str = "relu"):
+    def __init__(self, d_model: int, d_ffn: int, activation: str = "relu",
+                 dropout: float = 0.1):
         super().__init__()
         self.act = {"relu": torch.relu, "gelu": gelu}[activation]
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm = layer_norm(d_model)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x + self.linear2(self.act(self.linear1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = dropout(self.act(self.linear1(x)), self.dropout, generator)
+        y = dropout(self.linear2(y), self.dropout, generator)
+        return self.norm(x + y)
 
 
 class SelfAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` with ``qkv_features = d_model``
-    and no dropout: per-head projections (``query``, ``key``, ``value``),
-    the query scaled by 1/sqrt(head_dim), softmax over the keys, ``out``
-    projection back to the input width. A matmul, a softmax and a matmul:
-    no TPU kernel computes it, and it covers the decoder's few queries."""
+    """flax ``MultiHeadDotProductAttention`` with ``qkv_features = d_model``:
+    per-head projections (``query``, ``key``, ``value``), the query scaled
+    by 1/sqrt(head_dim), softmax over the keys, dropout on the weights
+    (flax's ``broadcast_dropout=True``: one keep mask over the (queries,
+    keys) axes, shared by the batch and the heads), ``out`` projection back
+    to the input width. A matmul, a softmax and a matmul: no TPU kernel
+    computes it, and it covers the decoder's few queries."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of "
                              f"n_heads {n_heads}")
         self.n_heads = n_heads
+        self.dropout = dropout
         self.query = nn.Linear(d_model, d_model)
         self.key = nn.Linear(d_model, d_model)
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, q_in, k_in, v_in):
+    def forward(self, q_in, k_in, v_in,
+                generator: Optional[torch.Generator] = None):
         B, N, C = q_in.shape
         heads = self.n_heads
 
@@ -159,6 +192,8 @@ class SelfAttention(nn.Module):
         q = split(self.query(q_in)) / math.sqrt(C // heads)
         k, v = split(self.key(k_in)), split(self.value(v_in))
         attn = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        attn = dropout(attn, self.dropout, generator,
+                       (1, 1, *attn.shape[-2:]))
         return self.out((attn @ v).transpose(1, 2).reshape(B, N, C))
 
 
@@ -168,44 +203,51 @@ def _with_pos(x, pos):
 
 class DeformableTransformerDecoderLayer(nn.Module):
     """Self-attention, deformable cross-attention over the token set, FFN;
-    each followed by the residual and a LayerNorm. The self-attention's
-    query and key carry the position embedding, its value does not."""
+    each followed by dropout, the residual and a LayerNorm. The
+    self-attention's query and key carry the position embedding, its value
+    does not."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
                  activation: str = "relu", n_levels: int = 1,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, n_heads)
+        self.dropout = dropout
+        self.self_attn = SelfAttention(d_model, n_heads, dropout)
         self.norm2 = layer_norm(d_model)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = layer_norm(d_model)
-        self.ffn = _FFN(d_model, d_ffn, activation)
+        self.ffn = _FFN(d_model, d_ffn, activation, dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, src_pos,
-                spatial_shapes):
+                spatial_shapes, generator: Optional[torch.Generator] = None):
         q = _with_pos(tgt, query_pos)
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt2 = self.self_attn(q, q, tgt, generator)
+        tgt = self.norm2(tgt + dropout(tgt2, self.dropout, generator))
         tgt2, _ = self.cross_attn(_with_pos(tgt, query_pos), reference_points,
                                   _with_pos(src, src_pos), spatial_shapes)
-        return self.ffn(self.norm1(tgt + tgt2))
+        tgt = self.norm1(tgt + dropout(tgt2, self.dropout, generator))
+        return self.ffn(tgt, generator)
 
 
 class DeformableTransformerEncoderLayer(nn.Module):
     """Deformable self-attention over the token set (every token a query),
-    then the FFN."""
+    dropout, the residual and a LayerNorm, then the FFN."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
                  activation: str = "relu", n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = layer_norm(d_model)
-        self.ffn = _FFN(d_model, d_ffn, activation)
+        self.ffn = _FFN(d_model, d_ffn, activation, dropout)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
+    def forward(self, src, pos, reference_points, spatial_shapes,
+                generator: Optional[torch.Generator] = None):
         src2, _ = self.self_attn(_with_pos(src, pos), reference_points, src,
                                  spatial_shapes)
-        return self.ffn(self.norm1(src + src2))
+        src = self.norm1(src + dropout(src2, self.dropout, generator))
+        return self.ffn(src, generator)
 
 
 class MLP(nn.Module):

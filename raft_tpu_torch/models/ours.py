@@ -23,8 +23,14 @@ keypoint embeddings. In order:
    kernel in its cross-attention), inverse-sigmoid flow refinement, the
    dense flow from context attention, resized to the image.
 
-Flows are NHWC ``(B, H, W, 2)``. Only inference is ported: ``train=True``
-raises, dropout is not applied.
+Flows are NHWC ``(B, H, W, 2)``. ``train=True`` is the training forward of
+``raft_tpu/models/ours.py``: ``CNNDecoder``'s batch norm on the statistics
+of both images' batch (unless ``freeze_bn``), dropout at the transformer's
+sites from the caller's generator, and the gradient cut where JAX has
+``stop_gradient`` (the reference-flow bank, the source points, the
+destination slots of the reference points, the masks and the scores). The
+fork correlation is differentiable on both engines (on the card,
+``WindowedCorrelationFn`` with ``rescale=False``).
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ def _position_grid(row_tab, col_tab, h: int, w: int) -> torch.Tensor:
 
 
 class SparseRAFT(nn.Module):
-    """The "ours" model, f32 inference."""
+    """The "ours" model, f32: inference and the training forward."""
 
     def __init__(self, config: OursConfig = OursConfig()):
         super().__init__()
@@ -99,11 +105,13 @@ class SparseRAFT(nn.Module):
             self.encoder_pos_proj = nn.Linear(Dm, half)
             self.encoder = nn.ModuleList(
                 DeformableTransformerEncoderLayer(
-                    half, half * 4, "gelu", 2 * L, cfg.n_heads, cfg.n_points)
+                    half, half * 4, "gelu", 2 * L, cfg.n_heads, cfg.n_points,
+                    cfg.dropout)
                 for _ in range(cfg.encoder_iterations))
             self.context_encoder = nn.ModuleList(
                 DeformableTransformerEncoderLayer(
-                    half, half * 4, "gelu", 2 * L, cfg.n_heads, cfg.n_points)
+                    half, half * 4, "gelu", 2 * L, cfg.n_heads, cfg.n_points,
+                    cfg.dropout)
                 for _ in range(cfg.encoder_iterations))
         self.context_pos_embed = nn.Linear(Dm, cfg.up_dim)
         self.query_embed = nn.Parameter(torch.empty(N, Dm))
@@ -113,7 +121,8 @@ class SparseRAFT(nn.Module):
             self.motion_high_dim_query_proj = MLP(Dm, Dm, Dm, 2)
         self.decoder = nn.ModuleList(
             DeformableTransformerDecoderLayer(Dm, Dm * 4, "gelu", 2 * L,
-                                              cfg.n_heads, cfg.n_points)
+                                              cfg.n_heads, cfg.n_points,
+                                              cfg.dropout)
             for _ in range(cfg.outer_iterations))
         self.flow_embed = nn.ModuleList(MLP(Dm, Dm, 2, 3)
                                         for _ in range(cfg.outer_iterations))
@@ -150,30 +159,36 @@ class SparseRAFT(nn.Module):
                 iters: Optional[int] = None,
                 flow_init: Optional[torch.Tensor] = None,
                 test_mode: bool = False, train: bool = False,
-                freeze_bn: bool = False):
+                freeze_bn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``image1``/``image2`` (B, H, W, 3) in [0, 255]. ``iters`` is
         accepted and ignored (``outer_iterations`` rules). Returns
         ``(flow_low (B, H/8, W/8, 2), flow_up (B, H, W, 2))`` with
         ``test_mode``, else ``(flow_predictions, sparse_predictions)``: one
         (B, H, W, 2) flow and one ``(src_points, key_flow, masks, scores)``
-        per outer iteration."""
-        del iters, freeze_bn
+        per outer iteration.
+
+        ``train`` trains ``CNNDecoder``'s batch norm on the batch
+        statistics (moving the running ones) unless ``freeze_bn``, and
+        applies dropout drawn from ``generator``, which training with
+        ``config.dropout > 0`` needs."""
+        del iters
         if flow_init is not None:
             raise ValueError("the sparse family does not support warm "
                              "starting (flow_init)")
-        if train:
-            raise NotImplementedError(
-                "training the sparse family (batch statistics, dropout, the "
-                "MSDA and corr backward kernels) comes with its training "
-                "slice")
         cfg = self.config
+        if train and cfg.dropout > 0 and generator is None:
+            raise ValueError(f"training with dropout {cfg.dropout} draws "
+                             "its masks from a generator: pass generator=")
+        norm_train = train and not freeze_bn
+        rng = generator if train else None        # None: deterministic
         B, I_H, I_W, _ = image1.shape
         L, N, Dm = cfg.num_feature_levels, cfg.num_keypoints, cfg.d_model
         dev = image1.device
 
         both = torch.cat([normalize_image(image1), normalize_image(image2)])
-        E1, E2 = self.cnn_encoder(both)
-        D1, D2, U1 = self.cnn_decoder(both)
+        E1, E2 = self.cnn_encoder(both, norm_train)
+        D1, D2, U1 = self.cnn_decoder(both, norm_train)
         E1, E2 = E1[4 - L:], E2[4 - L:]
         D1, D2 = D1[4 - L:], D2[4 - L:]
         shapes = [tuple(f.shape[1:3]) for f in D1]
@@ -210,9 +225,9 @@ class SparseRAFT(nn.Module):
             for motion_layer, context_layer in zip(self.encoder,
                                                    self.context_encoder):
                 motion_src = motion_layer(motion_src, half_pos, enc_ref,
-                                          spatial_shapes)
+                                          spatial_shapes, rng)
                 context_src = context_layer(context_src, half_pos, enc_ref,
-                                            spatial_shapes)
+                                            spatial_shapes, rng)
         src = torch.cat([motion_src, context_src], dim=-1)
 
         uh, uw = U1.shape[1:3]
@@ -238,7 +253,7 @@ class SparseRAFT(nn.Module):
                 query_pos = query_pos * self.query_scale(query)
                 query_pos = query_pos + self.motion_high_dim_query_proj(query)
             query = self.decoder[o_i](query, query_pos, reference_points,
-                                      src, src_pos, spatial_shapes)
+                                      src, src_pos, spatial_shapes, rng)
 
             fe = self.flow_embed[o_i](query) + inverse_sigmoid(
                 reference_flows)

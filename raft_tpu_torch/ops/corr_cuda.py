@@ -13,10 +13,10 @@ to the plain PyTorch version (differentiated by autograd, coords
 included), a CUDA tensor to ``WindowedCorrelationFn``, whose forward is the
 kernel in ``csrc/corr_fwd.cu`` and whose backward is the kernel in
 ``csrc/corr_bwd.cu``, with no gradient for the coordinates (the contract of
-the JAX custom VJP ``_windowed_bwd``; RAFT detaches them every iteration).
-The backward kernel takes the canonical lookup only (``rescale=True``, C a
-multiple of 128) and raises on the sparse family's. Nothing else runs on
-the card: the wrappers raise on inputs the kernels do not take.
+the JAX custom VJP ``_windowed_bwd``; RAFT detaches them every iteration,
+the sparse family samples at fixed centres). Both kernels take both lookups
+and the same widths. Nothing else runs on the card: the wrappers raise on
+inputs the kernels do not take.
 ``launches`` and ``bwd_launches`` count the kernels' launches.
 """
 
@@ -33,7 +33,7 @@ from raft_tpu_torch.ops.sampling import bilinear_sampler
 launches = 0          # forward kernel launches (windowed_correlation_cuda)
 bwd_launches = 0      # backward kernel launches (windowed_correlation_bwd_cuda)
 MAX_LEVELS = 4
-FWD_CHANNELS = (128, 192, 256, 384, 512)   # and any C under 128
+CHANNELS = (128, 192, 256, 384, 512)   # and any C under 128
 
 
 def _window_delta(radius: int, device=None) -> torch.Tensor:
@@ -103,11 +103,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _check_lookup(fmap1, pyramid2, coords, radius: int,
-                  forward: bool) -> list:
-    """Raise unless the kernel takes these operands: for the forward C in
-    ``FWD_CHANNELS`` or under 128, for the backward a multiple of 128 up
-    to 512. Returns the levels' (h, w) pairs padded with zeros to
+def _check_lookup(fmap1, pyramid2, coords, radius: int) -> list:
+    """Raise unless the kernels take these operands: C in ``CHANNELS`` or
+    under 128. Returns the levels' (h, w) pairs padded with zeros to
     ``MAX_LEVELS``."""
     if fmap1.device.type != "cuda":
         raise ValueError(f"the corr kernels need CUDA tensors, got "
@@ -116,11 +114,9 @@ def _check_lookup(fmap1, pyramid2, coords, radius: int,
     L = len(pyramid2)
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"1 to {MAX_LEVELS} levels, got {L}")
-    if forward and not (0 < C < 128 or C in FWD_CHANNELS):
-        raise ValueError(f"C must be under 128 or one of {FWD_CHANNELS}, "
+    if not (0 < C < 128 or C in CHANNELS):
+        raise ValueError(f"C must be under 128 or one of {CHANNELS}, "
                          f"got {C}")
-    if not forward and (C % 128 or not 128 <= C <= 512):
-        raise ValueError(f"C must be 128, 256, 384 or 512, got {C}")
     if radius not in (3, 4):
         raise ValueError(f"radius must be 3 or 4, got {radius}")
     dev = fmap1.device
@@ -151,12 +147,12 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
 
     ``fmap1`` (B, H, W, C), each level (B, H_l, W_l, C), ``coords``
     (B, H, W, 2) at level-0 scale: float32, contiguous, on one CUDA device;
-    C under 128 or in ``FWD_CHANNELS``, radius 3 or 4, 1 to 4 levels.
+    C under 128 or in ``CHANNELS``, radius 3 or 4, 1 to 4 levels.
     Returns
     (B, H, W, L*(2r+1)^2) float32.
     """
     global launches
-    dims = _check_lookup(fmap1, pyramid2, coords, radius, True)
+    dims = _check_lookup(fmap1, pyramid2, coords, radius)
     B, H, W, C = fmap1.shape
     dev = fmap1.device
     win = 2 * radius + 1
@@ -174,7 +170,7 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -184,17 +180,12 @@ def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
     """Launch the kernel of ``csrc/corr_bwd.cu`` on the current stream: the
     gradients of ``windowed_correlation_cuda`` for the cotangent ``grad``
     (B, H, W, L*(2r+1)^2). Operands as for the forward, ``grad`` float32
-    and contiguous too, C a multiple of 128. Returns ``(df1 (B, H, W, C),
-    (df2_l (B, H_l, W_l, C), ...))``, float32; the coordinates get no
-    gradient. The kernel has no ``rescale=False`` form yet (the sparse
-    family's training slice): that raises ``NotImplementedError``."""
+    and contiguous too. Returns ``(df1 (B, H, W, C), (df2_l (B, H_l, W_l,
+    C), ...))``, float32; the coordinates get no gradient. The df2 levels
+    are summed with atomics, so they are not bit-reproducible from run to
+    run."""
     global bwd_launches
-    if not rescale:
-        raise NotImplementedError(
-            "the corr backward kernel samples level l at coords / 2**l; its "
-            "rescale=False form comes with the sparse family's training "
-            "slice")
-    dims = _check_lookup(fmap1, pyramid2, coords, radius, False)
+    dims = _check_lookup(fmap1, pyramid2, coords, radius)
     B, H, W, C = fmap1.shape
     dev = fmap1.device
     win = 2 * radius + 1
@@ -207,7 +198,8 @@ def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
             fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
             *dims, len(pyramid2), coords.data_ptr(), grad.data_ptr(),
             df1.data_ptr(), *[d.data_ptr() for d in _padded(df2s)], B,
-            H * W, C, radius, 1.0 / _scale_div(C, scale), stream)
+            H * W, C, radius, int(rescale), 1.0 / _scale_div(C, scale),
+            stream)
     if err:
         raise RuntimeError(f"corr_bwd kernel failed: cudaError {err}")
     bwd_launches += 1
@@ -217,8 +209,8 @@ def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
 class WindowedCorrelationFn(torch.autograd.Function):
     """The lookup on the card, differentiable: forward
     ``windowed_correlation_cuda``, backward ``windowed_correlation_bwd_cuda``
-    (gradients for fmap1 and every level, ``None`` for the coordinates; it
-    raises for ``rescale=False``). It saves only its inputs."""
+    (gradients for fmap1 and every level, ``None`` for the coordinates).
+    It saves only its inputs."""
 
     @staticmethod
     def forward(ctx, fmap1, coords, radius, scale, rescale, *pyramid2):

@@ -8,9 +8,11 @@ weights. A normalised location ``u`` in [0, 1] maps to pixel ``u*W - 0.5``
 level.
 
 ``ms_deform_attn`` dispatches on where the tensors lie: a CPU tensor goes to
-the plain PyTorch version (``ms_deform_attn_plain``), a CUDA tensor to the
-kernel of ``ops/msda_cuda.py`` at every query count (the JAX package's
-128-query crossover was measured on a TPU and does not carry over).
+the plain PyTorch version (``ms_deform_attn_plain``, differentiated by
+autograd), a CUDA tensor to the kernels of ``ops/msda_cuda.py`` at every
+query count (the JAX package's 128-query crossover was measured on a TPU and
+does not carry over), forward and backward. ``ms_deform_attn_bwd_plain`` is
+the backward kernel's plain version.
 """
 
 from __future__ import annotations
@@ -58,16 +60,33 @@ def ms_deform_attn_plain(value: torch.Tensor,
     return out.reshape(B, Lq, M * D)
 
 
+def ms_deform_attn_bwd_plain(value: torch.Tensor,
+                             spatial_shapes: Sequence[Tuple[int, int]],
+                             sampling_locations: torch.Tensor,
+                             attention_weights: torch.Tensor,
+                             grad: torch.Tensor):
+    """The plain version of the backward kernel: autograd through
+    ``ms_deform_attn_plain`` for the cotangent ``grad`` (B, Lq, M*D).
+    Returns ``(d_value, d_loc, d_aw)`` like
+    ``msda_cuda.ms_deform_attn_bwd_cuda``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_plain(leaves[0], spatial_shapes, leaves[1],
+                                   leaves[2])
+        return torch.autograd.grad(out, leaves, grad)
+
+
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
     """Deformable attention sampling, shapes as ``ms_deform_attn_plain``:
-    the plain version for CPU tensors, the CUDA kernel
+    the plain version for CPU tensors, the CUDA kernels
     (``msda_cuda.MSDeformAttnFn``) for CUDA tensors."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes,
                                     sampling_locations, attention_weights)
     return msda_cuda.MSDeformAttnFn.apply(
-        msda_cuda.ms_deform_attn_cuda, value, tuple(spatial_shapes),
-        sampling_locations, attention_weights)
+        msda_cuda.ms_deform_attn_cuda, msda_cuda.ms_deform_attn_bwd_cuda,
+        value, tuple(spatial_shapes), sampling_locations, attention_weights)

@@ -1,7 +1,9 @@
 """The training loop, the counterpart of ``raft_tpu/train.py``'s ``train``
 and ``resolve_train_corr_engine``.
 
-This slice trains canonical RAFT-large on batches from an injected
+It trains canonical RAFT-large (``model_family="raft"``, a ``RAFTConfig``)
+or the sparse-keypoint family's ``SparseRAFT`` (``model_family="sparse"``,
+an ``OursConfig``) on batches from an injected
 ``dataloader``: any iterable of ``{"image1", "image2", "flow", "valid"}``
 batches, NHWC, as numpy arrays or tensors (``image*`` (B, H, W, 3) in [0,
 255], ``flow`` (B, H, W, 2), ``valid`` (B, H, W)). It is iterated again
@@ -13,24 +15,29 @@ Not ported yet, each refused with ``NotImplementedError`` when asked for:
 the data pipeline and the ``--stage`` CLI (``dataloader=None``),
 checkpoints and resume, the preemption guard, the logger's files and
 TensorBoard (``log_dir``), validation in the loop, spatial sharding and the
-other model families.
+other model families (``keypoint_transformer``, ``dual_query``,
+``two_stage``, ``full_transformer``).
 
     from raft_tpu_torch.config import RAFTConfig, TrainConfig
     from raft_tpu_torch.train import train
     state = train(TrainConfig(num_steps=100), RAFTConfig(),
                   dataloader=my_batches,
                   restore_ckpt="assets/golden/weights.npz")
+    state = train(TrainConfig(model_family="sparse", sparse_lambda=0.1,
+                              image_size=(352, 480)), OursConfig(),
+                  dataloader=my_batches)
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from raft_tpu_torch.config import RAFTConfig, TrainConfig
+from raft_tpu_torch.config import OursConfig, RAFTConfig, TrainConfig
 from raft_tpu_torch.evaluate import resolve_device, use_float32_math
+from raft_tpu_torch.models.ours import SparseRAFT
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.models.update import UPDATE_IMPLS
 from raft_tpu_torch.parallel.train_step import (TrainState,
@@ -75,7 +82,27 @@ def _refuse(**unported) -> None:
                                       f"raft_tpu_torch yet (ROADMAP.md)")
 
 
-def train(tcfg: TrainConfig, mcfg: RAFTConfig = RAFTConfig(), *,
+def build_model(model_family: str, mcfg: Union[RAFTConfig, OursConfig]):
+    """The model of ``model_family`` from its config (the counterpart of
+    ``raft_tpu/train.py``'s ``build_model``): ``RAFT`` from a
+    ``RAFTConfig``, ``SparseRAFT`` from an ``OursConfig``, whose
+    ``alternate_corr`` picks the correlation engine (the JAX package reads
+    an environment variable for it; the port has no such knob). Raises
+    ``TypeError`` on a config of the other family, ``NotImplementedError``
+    on a family not ported yet."""
+    want = {"raft": RAFTConfig, "sparse": OursConfig}.get(model_family)
+    if want is None:
+        raise NotImplementedError(f"model_family={model_family!r} is not "
+                                  f"ported to raft_tpu_torch yet "
+                                  f"(ROADMAP.md)")
+    if type(mcfg) is not want:
+        raise TypeError(f"model_family={model_family!r} takes a "
+                        f"{want.__name__}, got {type(mcfg).__name__}")
+    return RAFT(mcfg) if model_family == "raft" else SparseRAFT(mcfg)
+
+
+def train(tcfg: TrainConfig,
+          mcfg: Union[RAFTConfig, OursConfig] = RAFTConfig(), *,
           dataloader=None, restore_ckpt: Optional[str] = None,
           device=None, corr_impl: str = "auto", update_impl: str = "step",
           logger=None, resume: bool = False,
@@ -84,8 +111,14 @@ def train(tcfg: TrainConfig, mcfg: RAFTConfig = RAFTConfig(), *,
           spatial_shards: int = 1) -> TrainState:
     """Run one training stage on ``dataloader``; returns the final state.
 
-    ``restore_ckpt``: a ``.npz`` archive with torch state-dict names (such
-    as ``assets/golden/weights.npz``), parameters and batch-norm buffers.
+    ``mcfg`` is the model's config: a ``RAFTConfig`` for
+    ``tcfg.model_family="raft"``, an ``OursConfig`` for ``"sparse"``
+    (``build_model``; a ``SparseRAFT`` starts from the random weights of
+    its ``init_weights`` seeded from ``tcfg.seed``). ``corr_impl`` and
+    ``update_impl`` are RAFT's levers; the sparse family refuses any but
+    their defaults. ``restore_ckpt``: a ``.npz`` archive with torch
+    state-dict names (such as ``assets/golden/weights.npz``, or one written
+    by ``weights.state_dict_to_npz``), parameters and batch-norm buffers.
     Batch norm trains on the chairs stage and is frozen on the others, as
     in the reference. ``logger``, if given, is called as
     ``logger.push(metrics, lr=...)`` after every step, the interface of
@@ -95,7 +128,6 @@ def train(tcfg: TrainConfig, mcfg: RAFTConfig = RAFTConfig(), *,
     """
     _refuse(**{
         "the data pipeline (pass dataloader=)": dataloader is None,
-        f"model_family={tcfg.model_family!r}": tcfg.model_family != "raft",
         "resume": resume, "validation in the loop": bool(validation),
         "checkpointing (ckpt_dir)": ckpt_dir is not None,
         "async checkpointing": tcfg.async_checkpointing,
@@ -104,19 +136,27 @@ def train(tcfg: TrainConfig, mcfg: RAFTConfig = RAFTConfig(), *,
     if update_impl not in UPDATE_IMPLS:
         raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
                          f"got {update_impl!r}")
+    model = build_model(tcfg.model_family, mcfg)
+    sparse = tcfg.model_family == "sparse"
+    if sparse and (corr_impl != "auto" or update_impl != "step"):
+        raise ValueError("corr_impl and update_impl are canonical RAFT's "
+                         "levers; the sparse family's correlation engine is "
+                         "OursConfig.alternate_corr")
     device = resolve_device(device)
     if device.type == "cuda":
         use_float32_math()
     torch.manual_seed(tcfg.seed)
 
-    model = RAFT(mcfg)
+    if sparse:
+        model.init_weights(torch.Generator().manual_seed(tcfg.seed))
     if restore_ckpt:
         model.load_state_dict(load_npz(restore_ckpt))
     model.to(device)
     state = create_train_state(model, tcfg)
     step_fn = make_train_step(
         tcfg, freeze_bn=tcfg.stage != "chairs",
-        alternate_corr=resolve_train_corr_engine(device, corr_impl, mcfg),
+        alternate_corr=None if sparse else resolve_train_corr_engine(
+            device, corr_impl, mcfg),
         update_impl=update_impl)
 
     consecutive_skips = 0

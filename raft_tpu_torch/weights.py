@@ -125,7 +125,7 @@ def sparse_state_dict_from_flax(variables: Mapping
 
     def put(scope, leaf, v):
         state[".".join(scope + [leaf])] = torch.from_numpy(
-            np.ascontiguousarray(v, dtype=np.float32))
+            np.array(v, dtype=np.float32, order="C"))
 
     for path, v in _leaves(variables.get("params", {})):
         scope, leaf = _sparse_scope(path[:-1]), path[-1]

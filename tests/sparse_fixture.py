@@ -30,6 +30,11 @@ HW = (64, 96)
 WEIGHT_SEED, FRAME_SEED = 11, 12
 _TABLES = ("row_pos_embed", "col_pos_embed", "lvl_pos_embed",
            "img_pos_embed")
+# XLA options for the tests' compiles of JAX programs: a low optimisation
+# level takes less compile time and gives the same float32 arithmetic up
+# to rounding
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 def frames(batch: int, seed: int = FRAME_SEED):
@@ -97,16 +102,65 @@ def jax_model(encoder_iterations: int = 0, alternate_corr: bool = True):
                                  alternate_corr=alternate_corr))
 
 
+def filled_init(module, *args, seed: int = WEIGHT_SEED, **kwargs):
+    """A flax ``module``'s variables (numpy) for ``module.init(rngs, *args,
+    **kwargs)``: the init's shapes by ``jax.eval_shape``, filled from
+    ``seed`` (``fill_variables``). Running a flax init op by op takes
+    seconds to minutes on the CPU; its shapes take a trace."""
+    import jax
+
+    shapes = jax.eval_shape(lambda: module.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        *args, **kwargs))
+    return fill_variables(shapes, seed)
+
+
 def jax_variables(model, batch: int = 1, seed: int = WEIGHT_SEED):
     """``model``'s variables (numpy), from the init's shapes and ``seed``."""
-    import jax
     import jax.numpy as jnp
 
     img = jnp.zeros((batch, *HW, 3), jnp.float32)
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-        img, img))
-    return fill_variables(shapes, seed)
+    return filled_init(model, img, img, seed=seed)
+
+
+def flat_train_state(model, variables, tx):
+    """A ``raft_tpu.parallel.train_step.RAFTTrainState`` at step 0 that
+    carries ``variables``' parameters and batch statistics as one flat
+    vector each (``jax.flatten_util.ravel_pytree``), unravelled inside its
+    ``apply_fn``, and a function that turns such a state's vectors back
+    into variables (numpy). ``make_train_step`` computes the same step on
+    it (AdamW's decay mask holds every parameter of a model without
+    frozen batch norms, and the clip's global norm sums the same squares),
+    but XLA on the CPU compiles its optimizer and non-finite guard as a
+    few fusions instead of several for every leaf, which takes minutes for
+    a model of a few hundred leaves."""
+    import jax
+    import jax.numpy as jnp
+    from jax.flatten_util import ravel_pytree
+
+    from raft_tpu.parallel.train_step import RAFTTrainState
+
+    params, unravel_p = ravel_pytree(variables["params"])
+    stats, unravel_s = ravel_pytree(variables["batch_stats"])
+
+    def apply_fn(v, *args, **kwargs):
+        out, mutated = model.apply(
+            {"params": unravel_p(v["params"]["flat"]),
+             "batch_stats": unravel_s(v["batch_stats"]["flat"])},
+            *args, **kwargs)
+        return out, {"batch_stats": {
+            "flat": ravel_pytree(mutated["batch_stats"])[0]}}
+
+    def unflatten(state):
+        return jax.tree_util.tree_map(np.asarray, {
+            "params": unravel_p(state.params["flat"]),
+            "batch_stats": unravel_s(state.batch_stats["flat"])})
+
+    state = RAFTTrainState(
+        step=jnp.zeros((), jnp.int32), params={"flat": params},
+        batch_stats={"flat": stats}, opt_state=tx.init({"flat": params}),
+        apply_fn=apply_fn, tx=tx)
+    return state, unflatten
 
 
 def tiny_variables():
@@ -136,8 +190,9 @@ def jax_forward(model, variables, img1, img2):
         low = jax.image.resize(up, (n, h // 8, w // 8, 2), "linear") / 8.0
         return low, up, flows, sparse
 
-    return jax.tree_util.tree_map(np.asarray,
-                                  jax.jit(run)(variables, img1, img2))
+    args = (variables, img1, img2)
+    return jax.tree_util.tree_map(np.asarray, jax.jit(run).lower(
+        *args).compile(compiler_options=FAST_COMPILE)(*args))
 
 
 def make_fixture():

@@ -66,11 +66,17 @@ def lookup_inputs():
     return f1, f2, coords
 
 
+def _jax_lookup(f1, f2, coords):
+    """JAX's on-demand lookup over a 2-level pyramid, compiled (op by op
+    it takes seconds on the CPU)."""
+    return jax.jit(lambda a, b, c: jcorr.alternate_lookup(
+        a, jcorr.build_feature_pyramid(b, 2), c, R, backend="jnp"))(
+        f1, f2, coords)
+
+
 def test_plain_lookup_matches_jax(lookup_inputs):
     f1, f2, coords = lookup_inputs
-    want = jcorr.alternate_lookup(
-        jnp.asarray(f1), jcorr.build_feature_pyramid(jnp.asarray(f2), 2),
-        jnp.asarray(coords), R, backend="jnp")
+    want = _jax_lookup(f1, f2, coords)
     got = corr.alternate_lookup(_t(f1), corr.build_feature_pyramid(_t(f2), 2),
                                 _t(coords), R)
     assert got.shape == (B, H, W, 2 * (2 * R + 1) ** 2)
@@ -81,9 +87,9 @@ def test_plain_lookup_matches_jax(lookup_inputs):
 def test_plain_lookup_matches_pallas_interpret(lookup_inputs):
     """Against the TPU kernel itself, run by the Pallas interpreter."""
     f1, f2, coords = lookup_inputs
-    pyr = jcorr.build_feature_pyramid(jnp.asarray(f2), 2)
-    want = windowed_correlation_pallas_fused(
-        jnp.asarray(f1), pyr, jnp.asarray(coords), R, interpret=True)
+    want = jax.jit(lambda a, b, c: windowed_correlation_pallas_fused(
+        a, jcorr.build_feature_pyramid(b, 2), c, R, interpret=True))(
+        f1, f2, coords)
     got = corr_cuda.windowed_correlation_fused_plain(
         _t(f1), corr.build_feature_pyramid(_t(f2), 2), _t(coords), R)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
@@ -92,8 +98,8 @@ def test_plain_lookup_matches_pallas_interpret(lookup_inputs):
 
 def test_single_level_matches_jax(lookup_inputs):
     f1, f2, coords = lookup_inputs
-    want = jcorr.windowed_correlation(jnp.asarray(f1), jnp.asarray(f2),
-                                      jnp.asarray(coords), R, scale=False)
+    want = jax.jit(lambda a, b, c: jcorr.windowed_correlation(
+        a, b, c, R, scale=False))(f1, f2, coords)
     got = corr.windowed_correlation(_t(f1), _t(f2), _t(coords), R,
                                     scale=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
@@ -102,12 +108,15 @@ def test_single_level_matches_jax(lookup_inputs):
 
 def test_all_pairs_pyramid_and_lookup_match_jax(lookup_inputs):
     f1, f2, coords = lookup_inputs
-    jpyr = jcorr.build_corr_pyramid(jnp.asarray(f1), jnp.asarray(f2), 3)
+    def jax_engine(a, b, c):
+        jpyr = jcorr.build_corr_pyramid(a, b, 3)
+        return jpyr, jcorr.pyramid_lookup(jpyr, c, R)
+
+    jpyr, want = jax.jit(jax_engine)(f1, f2, coords)
     pyr = corr.build_corr_pyramid(_t(f1), _t(f2), 3)
     for a, b in zip(pyr, jpyr):
         assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=0)
-    want = jcorr.pyramid_lookup(jpyr, jnp.asarray(coords), R)
     got = corr.CorrBlock(_t(f1), _t(f2), 3, R)(_t(coords))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=0)
@@ -141,9 +150,7 @@ def test_degenerate_level_gives_zero_windows(lookup_inputs):
     got = corr.alternate_lookup(_t(f1), pyr, _t(coords), R)
     win = (2 * R + 1) ** 2
     assert torch.count_nonzero(got[..., win:]) == 0
-    want = jcorr.alternate_lookup(
-        jnp.asarray(f1), jcorr.build_feature_pyramid(jnp.asarray(f2), 2),
-        jnp.asarray(coords), R, backend="jnp")
+    want = _jax_lookup(f1, f2, coords)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=0)
 
@@ -154,7 +161,7 @@ def test_sampling_primitives_match_jax():
     pts = rng.uniform(-2, 6, (2, 4, 9, 2)).astype(np.float32)
     pts[0, 0, 0] = [0.0, 3.0]                                   # exact pixel
     got = sampling.bilinear_sampler(_t(img), _t(pts))
-    want = jsampling.bilinear_sampler(jnp.asarray(img), jnp.asarray(pts))
+    want = jax.jit(jsampling.bilinear_sampler)(img, pts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=0)
     assert np.array_equal(got[0, 0, 0].numpy(), img[0, 3, 0])
@@ -166,7 +173,7 @@ def test_sampling_primitives_match_jax():
     x = rng.standard_normal((1, 55, 9, 2)).astype(np.float32)
     sizes = []
     for _ in range(3):
-        jx = jsampling.avg_pool2x2(jnp.asarray(x))
+        jx = jax.jit(jsampling.avg_pool2x2)(x)
         x_t = sampling.avg_pool2x2(_t(x))
         np.testing.assert_allclose(x_t.numpy(), np.asarray(jx), atol=TOL,
                                    rtol=0)
@@ -178,12 +185,11 @@ def test_sampling_primitives_match_jax():
     mask = rng.standard_normal((2, 3, 4, 576)).astype(np.float32)
     np.testing.assert_allclose(
         sampling.convex_upsample(_t(flow), _t(mask)).numpy(),
-        np.asarray(jsampling.convex_upsample(jnp.asarray(flow),
-                                             jnp.asarray(mask))),
+        np.asarray(jax.jit(jsampling.convex_upsample)(flow, mask)),
         atol=TOL, rtol=0)
     np.testing.assert_allclose(
         sampling.upflow8(_t(flow)).numpy(),
-        np.asarray(jsampling.upflow8(jnp.asarray(flow))), atol=TOL, rtol=0)
+        np.asarray(jax.jit(jsampling.upflow8)(flow)), atol=TOL, rtol=0)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(lookup_inputs):

@@ -1,8 +1,9 @@
 """The port's SepConvGRU cell against the JAX package, and the CUDA
 kernel's weight layout.
 
-The same seeded numpy inputs and flax-initialised weights (carried into the
-port by ``state_dict_from_flax``) go through the flax ``SepConvGRU`` (conv
+The same seeded numpy inputs and seeded weights of the flax module's shapes
+(``sparse_fixture.filled_init``, carried into the port by
+``state_dict_from_flax``) go through the flax ``SepConvGRU`` (conv
 path), the TPU kernel run by the Pallas interpreter, and the port. Hidden
 states are of order 1; float32 convolutions summed in different orders
 agree to about 1e-6, so the bar is 1e-5 (relative to that unit scale).
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import sparse_fixture as fixture
 from raft_tpu_torch.models.update import SepConvGRU
 from raft_tpu_torch.ops import gru_cuda
 from raft_tpu_torch.weights import state_dict_from_flax
@@ -60,8 +62,8 @@ def gru_setup():
     h = np.tanh(rng.standard_normal((B, H, W, C))).astype(np.float32)
     x = rng.standard_normal((B, H, W, CX)).astype(np.float32)
     jmodel = JaxSepConvGRU(hidden_dim=C)
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(h),
-                            jnp.asarray(x))
+    variables = fixture.filled_init(jmodel, jnp.asarray(h), jnp.asarray(x),
+                                    seed=0)
     want = np.asarray(jmodel.apply(variables, jnp.asarray(h), jnp.asarray(x)))
     module = SepConvGRU(C, CX)
     module.load_state_dict(state_dict_from_flax(variables))

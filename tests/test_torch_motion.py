@@ -1,8 +1,9 @@
 """The port's motion encoder against the JAX package, the CUDA kernel's
 weight layout, and the kernel build's cache key.
 
-The same seeded numpy inputs and flax-initialised weights (carried into the
-port by ``state_dict_from_flax``) go through ``motion_pallas``'s plain jnp
+The same seeded numpy inputs and seeded weights of the flax module's shapes
+(``sparse_fixture.filled_init``, carried into the port by
+``state_dict_from_flax``) go through ``motion_pallas``'s plain jnp
 twin and its TPU kernel run by the Pallas interpreter, and through the
 port. Features are of order 1; float32 convolutions summed in different
 orders agree to about 1e-6, so the bar is 1e-5. The flow passthrough is a
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import sparse_fixture as fixture
 import torch_conv_replay as replay
 from raft_tpu_torch.models.update import BasicMotionEncoder
 from raft_tpu_torch.ops import build, motion_cuda
@@ -64,10 +66,10 @@ def motion_setup():
     rng = np.random.default_rng(0)
     flow = (3.0 * rng.standard_normal((B, H, W, 2))).astype(np.float32)
     corr = rng.standard_normal((B, H, W, CC)).astype(np.float32)
-    # jitted: eager, the flax init and the twin's ~70 tap matmuls dispatch
-    # op by op and take several times longer on the CPU
-    variables = jax.jit(JaxMotionEncoder().init)(
-        jax.random.PRNGKey(0), jnp.asarray(flow), jnp.asarray(corr))
+    variables = fixture.filled_init(JaxMotionEncoder(), jnp.asarray(flow),
+                                    jnp.asarray(corr), seed=0)
+    # jitted: eager, the twin's ~70 tap matmuls dispatch op by op and take
+    # several times longer on the CPU
     p = variables["params"]
     mats = motion_pallas.pack_weights(*(
         (p[n]["kernel"], p[n]["bias"])
@@ -92,8 +94,12 @@ def test_plain_matches_reference_motion(motion_setup):
 def test_plain_matches_pallas_interpret(motion_setup):
     """Against the TPU kernel itself, run by the Pallas interpreter."""
     module, mats, flow, corr, _ = motion_setup
-    want = motion_pallas.motion_encoder(jnp.asarray(flow), jnp.asarray(corr),
-                                        mats, interpret=True)
+    # compiled at a low XLA optimisation level: less time than running the
+    # interpreter op by op, the same float32 arithmetic up to a few ulp
+    fn = jax.jit(lambda f, c: motion_pallas.motion_encoder(
+        f, c, mats, interpret=True))
+    want = fn.lower(flow, corr).compile(
+        compiler_options=fixture.FAST_COMPILE)(flow, corr)
     with torch.inference_mode():
         got = module(_t(flow), _t(corr))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,

@@ -22,6 +22,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import sparse_fixture as fixture
+
 from raft_tpu.config import RAFTConfig as JaxRAFTConfig
 from raft_tpu.models import extractor as jextractor
 from raft_tpu.models import update as jupdate
@@ -111,13 +113,9 @@ def test_basic_encoder_matches_jax(norm_fn):
     rng = np.random.default_rng(0)
     x = rng.uniform(-1, 1, (2, 32, 48, 3)).astype(np.float32)
     jenc = jextractor.BasicEncoder(64, norm_fn)
-    variables = jax.tree.map(np.asarray, jenc.init(jax.random.PRNGKey(1),
-                                                   jnp.asarray(x)))
-    if "batch_stats" in variables:          # non-trivial running statistics
-        variables["batch_stats"] = jax.tree.map(
-            lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-            if a.ndim else a, variables["batch_stats"])
-    want = jenc.apply(variables, jnp.asarray(x))
+    # weights and non-trivial running statistics from a seed
+    variables = fixture.filled_init(jenc, jnp.asarray(x), seed=1)
+    want = jax.jit(jenc.apply)(variables, x)
     enc = BasicEncoder(64, norm_fn)
     enc.load_state_dict(state_dict_from_flax(variables))
     with torch.inference_mode():
@@ -136,7 +134,7 @@ def update_setup():
     flow = rng.uniform(-3, 3, (*shape, 2)).astype(np.float32)
     args = tuple(jnp.asarray(a) for a in (net, inp, corr, flow))
     jblock = jupdate.BasicUpdateBlock(128)
-    variables = jblock.init(jax.random.PRNGKey(2), *args)
+    variables = fixture.filled_init(jblock, *args, seed=2)
     block = BasicUpdateBlock(128, 128, 324)
     block.load_state_dict(state_dict_from_flax(variables))
     return jblock, variables, block, args, (net, inp, corr, flow)
@@ -145,8 +143,8 @@ def update_setup():
 @pytest.mark.parametrize("compute_mask", [True, None])
 def test_update_block_matches_jax(update_setup, compute_mask):
     jblock, variables, block, args, arrays = update_setup
-    jnet, jmask, jdelta = jblock.apply(variables, *args,
-                                       compute_mask=compute_mask)
+    jnet, jmask, jdelta = jax.jit(lambda v, *a: jblock.apply(
+        v, *a, compute_mask=compute_mask))(variables, *args)
     with torch.inference_mode():
         net, mask, delta = block(*(_t(a) for a in arrays),
                                  compute_mask=compute_mask)
@@ -173,10 +171,17 @@ def jax_flows(npz_state, frames):
             init = (np.random.default_rng(4).uniform(-2, 2, (1, 8, 12, 2))
                     .astype(np.float32) if alternate_corr else None)
             jmodel = JaxRAFT(JaxRAFTConfig(alternate_corr=alternate_corr))
-            jlow, jup = jmodel.apply(
-                convert_state_dict(npz_state), jnp.asarray(img1),
-                jnp.asarray(img2), iters=3, test_mode=True,
-                flow_init=None if init is None else jnp.asarray(init))
+
+            def forward(v, a, b, flow_init):
+                return jmodel.apply(v, a, b, iters=3, test_mode=True,
+                                    flow_init=flow_init)
+
+            # compiled at a low XLA optimisation level: a quarter of the
+            # time of running the model op by op, the same arithmetic up to
+            # float rounding
+            args = (convert_state_dict(npz_state), img1, img2, init)
+            jlow, jup = jax.jit(forward).lower(*args).compile(
+                compiler_options=fixture.FAST_COMPILE)(*args)
             cache[alternate_corr] = (init, np.asarray(jlow), np.asarray(jup))
         return cache[alternate_corr]
     return run

@@ -1,8 +1,9 @@
 """The port's refine iteration against the JAX package, and the step
 kernel's weight layout.
 
-One flax ``BasicUpdateBlock`` is initialised from a seed and carried into
-the port by ``state_dict_from_flax``; the same seeded numpy inputs go
+One flax ``BasicUpdateBlock``'s variables are filled from a seed
+(``sparse_fixture.filled_init``) and carried into the port by
+``state_dict_from_flax``; the same seeded numpy inputs go
 through ``step_pallas.fused_step`` (the TPU kernel run by the Pallas
 interpreter) at both depths, the flax block with ``RAFT_STEP_PALLAS=1``,
 ``gru_pallas.sepconv_gru`` with x as parts, and the port. Hidden states and
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import sparse_fixture as fixture
 import torch_conv_replay as replay
 from raft_tpu_torch.models.update import BasicUpdateBlock
 from raft_tpu_torch.ops import gru_cuda, motion_cuda, step_cuda
@@ -70,8 +72,8 @@ def step_setup():
     flow = (3.0 * rng.standard_normal((B, H, W, 2))).astype(np.float32)
     arrays = (net, inp, corr, flow)
     jblock = JaxUpdateBlock()
-    variables = jax.jit(jblock.init)(jax.random.PRNGKey(1),
-                                     *(jnp.asarray(a) for a in arrays))
+    variables = fixture.filled_init(jblock, *(jnp.asarray(a)
+                                              for a in arrays), seed=1)
     p = variables["params"]
     mmats = motion_pallas.pack_weights(*_pairs(
         p["encoder"], "convc1", "convc2", "convf1", "convf2", "conv"))
@@ -83,6 +85,15 @@ def step_setup():
     block = BasicUpdateBlock(C, C, CC)
     block.load_state_dict(state_dict_from_flax(variables))
     return jblock, variables, (mmats, gmats, fmats), block.eval(), arrays
+
+
+def _compiled(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled at a low XLA optimisation level:
+    less time than the default compile or than running the Pallas
+    interpreter op by op, for the same float32 arithmetic up to a few
+    ulp."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options=fixture.FAST_COMPILE)(*args)
 
 
 def _convs(block, depth):
@@ -99,9 +110,9 @@ def test_plan_fusion_has_a_depth_for_every_iteration():
 def test_plain_matches_pallas_fused_step(step_setup, depth):
     """Against the TPU step kernel, run by the Pallas interpreter."""
     _, _, (mmats, gmats, fmats), block, arrays = step_setup
-    want = step_pallas.fused_step(*(jnp.asarray(a) for a in arrays), mmats,
-                                  gmats, fmats if depth == "mgf" else None,
-                                  interpret=True)
+    want = _compiled(lambda *a: step_pallas.fused_step(
+        *a, mmats, gmats, fmats if depth == "mgf" else None,
+        interpret=True), *arrays)
     got = step_cuda.fused_step_plain(*(_t(a) for a in arrays),
                                      _convs(block, depth))
     if depth == "mg":
@@ -120,8 +131,8 @@ def test_update_block_matches_flax_step_kernel(step_setup, monkeypatch,
     The port's block agrees through both update paths."""
     jblock, variables, _, block, arrays = step_setup
     monkeypatch.setenv("RAFT_STEP_PALLAS", "1")
-    want = jblock.apply(variables, *(jnp.asarray(a) for a in arrays),
-                        compute_mask=compute_mask)
+    want = _compiled(lambda v, *a: jblock.apply(
+        v, *a, compute_mask=compute_mask), variables, *arrays)
     for impl in ("step", "chain"):
         with torch.inference_mode():
             got = block(*(_t(a) for a in arrays), compute_mask=compute_mask,

@@ -384,7 +384,7 @@ def test_train_corr_engine_and_refusals(monkeypatch):
         args = {"dataloader": loader, "device": "cpu", **kw}
         with pytest.raises(NotImplementedError):
             train_mod.train(tcfg, **args)
-    for cfg in (TrainConfig(model_family="sparse"),
+    for cfg in (TrainConfig(model_family="dual_query"),
                 TrainConfig(async_checkpointing=True)):
         with pytest.raises(NotImplementedError):
             train_mod.train(cfg, dataloader=loader, device="cpu")
