@@ -28,7 +28,10 @@ versions, trains RAFT-large for 7 steps at the chairs defaults (B=8,
 steps; B=4 with ``encoder_iterations=2``, 3 steps; ``sparse_lambda=0.1``)
 through the port's ``train`` on synthetic batches, counting kernel
 launches on every path, times each kernel beside its plain version, its
-bound and a cuDNN yardstick where one exists, profiles one Sintel pair,
+bound and a cuDNN yardstick where one exists (the conv-tile kernels, which
+multiply in 3xTF32 on the tensor cores, at a third of the TF32 rate, with
+their f32 SIMT bound and achieved TFLOP/s beside it; their SASS is checked
+for tensor-core TF32 MMAs after the build), profiles one Sintel pair,
 one sparse forward, one RAFT and one sparse train step, and prints one
 JSON line of kernel numbers. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
@@ -104,9 +107,15 @@ SPARSE_LAMBDA = 0.1
 SPARSE_CMP_B = 2
 DEVICE = "cuda"               # the train helpers' device
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth. The
+# conv tile (csrc/conv_phase.cuh) multiplies in 3xTF32, three TF32 products
+# for each f32-grade one: its kernels' bound is their f32 operations at a
+# third of the TF32 rate (the f32 SIMT bound is printed beside it).
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
+CONV_TILE_KERNELS = ("sepconv_gru", "motion_fwd", "update_step")
 
 
 def fail(msg: str):
@@ -134,12 +143,32 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on the card: the larger of operations over the f32 peak
-    and bytes over the memory rate. Returns (ms, "operations"|"bytes")."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
+    """Least time on the card: the larger of operations over ``peak`` (the
+    f32 SIMT rate unless given) and bytes over the memory rate. Returns
+    (ms, "operations"|"bytes")."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def tensor_core_tf32_ops(cuobjdump: str, library: str) -> dict:
+    """Counts, by opcode, of the tensor-core MMA instructions with TF32
+    operands (HMMA, and Hopper's warpgroup HGMMA) in a built library's
+    SASS."""
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for op in re.findall(r"\b(HG?MMA\.[\w.]*TF32[\w.]*)", sass):
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def conv_tile_rates(ms: float, work) -> dict:
+    """A conv-tile kernel's f32 SIMT bound (ms, the rate of the tile before
+    3xTF32) and its achieved rate in f32-grade TFLOP/s."""
+    return {"bound_ms_f32_simt": bound(*work)[0],
+            "tflops": work[0] / ms / 1e9}
 
 
 def corr_inputs(torch, sampling, corr, rng, h, w, c=256, levels=4):
@@ -1244,6 +1273,12 @@ def main():
                     if "registers" in ln]
         print(f"  {name}: {os.path.relpath(path, REPO)}; ptxas: "
               f"{regs[0] if regs else 'no report'}")
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for name in CONV_TILE_KERNELS:
+        ops = tensor_core_tf32_ops(cuobjdump, paths[name])
+        print(f"  {name} SASS, tensor-core TF32 MMAs: {ops}")
+        if not ops:
+            fail(f"{name} has no tensor-core TF32 MMA in its SASS")
 
     weights = os.path.join(ASSETS_DIR, "golden", "weights.npz")
     kernel_pred = load_predictor(weights, iters=12)        # corr_impl auto
@@ -1591,7 +1626,11 @@ def main():
     def entry(name, source, replaces, ms, plain_ms, work, library_ms,
               **extra):
         path, counts, units, unit = path_of[name]
-        bound_ms, bound_by = bound(*work)
+        if name in CONV_TILE_KERNELS:
+            bound_ms, bound_by = bound(*work, peak=TF32X3_FLOPS)
+            extra.update(conv_tile_rates(ms, work))
+        else:
+            bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": counts[name],
@@ -1620,6 +1659,8 @@ def main():
                      device="cuda")
     train_bound_ms, _ = bound(*corr_bwd_work(torch, tf1, tpyr, tcoords,
                                              radius))
+    fwd_train_bound_ms, _ = bound(*corr_work(torch, tf1, tpyr, tcoords,
+                                             radius))
     entry("corr_bwd", "raft_tpu_torch/csrc/corr_bwd.cu",
           "raft_tpu/ops/corr_pallas.py:276",
           time_ms(torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
@@ -1632,6 +1673,7 @@ def main():
               torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
                   tf1, tpyr, tcoords, tg, radius)),
           bound_ms_train_shape=train_bound_ms,
+          bound_ms_fwd_train_shape=fwd_train_bound_ms,
           ms_fwd_train_shape=time_ms(
               torch, lambda: corr_cuda.windowed_correlation_cuda(
                   tf1, tpyr, tcoords, radius)),
@@ -1689,12 +1731,14 @@ def main():
                                step_convs[depth]),
                 library_ms=time_ms(torch, lambda: lib(net_c, inp_c, cor_c,
                                                       flo_c)))
-        mg_bound_ms, _ = bound(*step["mg"]["work"])
+        mg_bound_ms, _ = bound(*step["mg"]["work"], peak=TF32X3_FLOPS)
         entry("update_step", "raft_tpu_torch/csrc/update_step.cu",
               "raft_tpu/ops/step_pallas.py:127", **step["mgf"],
               depth="mgf", ms_mg=step["mg"]["ms"],
               plain_ms_mg=step["mg"]["plain_ms"], bound_ms_mg=mg_bound_ms,
-              library_ms_mg=step["mg"]["library_ms"])
+              library_ms_mg=step["mg"]["library_ms"],
+              **{f"{k}_mg": v for k, v in conv_tile_rates(
+                  step["mg"]["ms"], step["mg"]["work"]).items()})
         msda_times = {}
         for label, (b, lq, d_head) in msda_shapes.items():
             value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
@@ -1740,19 +1784,25 @@ def main():
           launches_per_step_encoder=enc_train[2]["msda_bwd"] / enc_train[3])
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        tile = (f", f32 SIMT bound {k['bound_ms_f32_simt']:.4f} ms, "
+                f"{k['tflops']:.2f} TFLOP/s" if k["name"] in CONV_TILE_KERNELS
+                else "")
         print(f"{k['name']}: {k['ms']:.4f} ms a launch, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}){tile}, plain "
               f"{k['plain_ms']:.4f} ms, library {lib}")
     named = {k["name"]: k for k in kernels}
     mg = named["update_step"]
     print(f"update_step 'mg': {mg['ms_mg']:.4f} ms a launch, bound "
-          f"{mg['bound_ms_mg']:.4f} ms, plain {mg['plain_ms_mg']:.4f} ms, "
-          f"library {mg['library_ms_mg']:.4f} ms")
+          f"{mg['bound_ms_mg']:.4f} ms, f32 SIMT bound "
+          f"{mg['bound_ms_f32_simt_mg']:.4f} ms, {mg['tflops_mg']:.2f} "
+          f"TFLOP/s, plain {mg['plain_ms_mg']:.4f} ms, library "
+          f"{mg['library_ms_mg']:.4f} ms")
     cb = named["corr_bwd"]
     print(f"corr_bwd at the train shape (B={TRAIN_B}, {th}x{tw}, flows up "
           f"to 4 px): {cb['ms_train_shape']:.4f} ms a launch, bound "
           f"{cb['bound_ms_train_shape']:.4f} ms; corr_fwd there "
-          f"{cb['ms_fwd_train_shape']:.4f} ms")
+          f"{cb['ms_fwd_train_shape']:.4f} ms, bound "
+          f"{cb['bound_ms_fwd_train_shape']:.4f} ms")
     cf = named["corr_fwd"]
     for c in sparse_corr:
         print(f"corr_fwd fork lookup C={c}: {cf['ms_sparse'][str(c)]:.4f} ms "

@@ -1,6 +1,7 @@
 // The shared convolution tile and phase runner of the port's update-block
 // kernels (sepconv_gru.cu, motion_fwd.cu, update_step.cu), NVIDIA Hopper
-// (sm_90a), plain SIMT float32 with float32 accumulation.
+// (sm_90a): an implicit GEMM on the tensor cores in 3xTF32, which gives
+// float32-grade products, with float32 accumulation.
 //
 // A convolution over NHWC float32 tensors is an implicit GEMM: M = pixels,
 // N = output channels, K = taps x input channels. The A operand is read
@@ -12,43 +13,109 @@
 //
 // Weights arrive packed by raft_tpu_torch/ops/conv_pack.py: rows tap-major
 // (tap = (dy + ky/2) * kx + (dx + kx/2)), within a tap each part's channels
-// followed by zero rows up to a multiple of BK; a 2-channel input (the
-// flow, whose 8-byte pixels allow no float4 load) packs taps x 2 channels
-// densely instead, zero rows up to a multiple of BK; columns padded with
-// zeros to a multiple of BN, and the bias likewise.
+// followed by zero rows up to a multiple of KC; a 2-channel input (the
+// flow, whose 8-byte pixels allow no 16-byte copy) packs taps x 2 channels
+// densely instead, zero rows up to a multiple of KC; columns padded with
+// zeros to a multiple of BN, and the bias likewise. The K x ldw matrix is
+// stored transposed (ldw x K, K contiguous, as the B operand of an MMA
+// wants it) and twice: its TF32 high part and the TF32 rounding of the
+// remainder (hi, then lo), split once when the weights are packed.
 //
-// A block computes a 64x64 output tile with 256 threads (4x4 each) through
-// a double-buffered shared-memory pipeline with register prefetch, then
-// applies one epilogue (bias + ReLU into a channel slice of a wider buffer,
-// with an optional flow passthrough; the GRU gates; the GRU blend). An
-// N = 2 convolution (the flow head's last) runs one warp per pixel instead
-// of a 64-wide tile.
+// Arithmetic. A TF32 operand keeps 11 significant bits: one TF32 product
+// pass would miss the port's float32 policy (the goldens hold RAFT to 2e-3
+// px after 32 iterations, kernel against plain 1e-4). Each operand x is
+// split as hi = tf32_rna(x) and lo = x - hi; a product is then
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (CUTLASS's "fast f32" order, the small
+// terms first), each a TF32 tensor-core product with float32 accumulation;
+// a_lo*b_lo (2^-22 relative) is dropped. The weights are split when they
+// are packed, lo rounded to TF32 too. The activations are split in
+// registers after the shared-memory load, in three integer and float
+// operations (no cvt): their lo is passed unrounded and the tensor core
+// keeps its top 11 bits, 2^-21 of x. The tensor cores round their sums
+// toward zero, so a long chain of products into one accumulator drifts
+// (5.9e-5 on the motion encoder's K = 2,304 at Sintel size, against the
+// 1e-4 bar, when every product of a tile went into one accumulator): each
+// stage's products go into fresh partial sums, which are added to the
+// tile's sum with ordinary f32 adds (1e-6 then).
+//
+// Bound. Three TF32 passes per product: the tile's peak is 495 / 3 = 165
+// TFLOP/s of f32-grade work (the f32 SIMT peak is 67), far above the
+// update block's bytes (tens of MB against tens of GFLOP): every kernel on
+// this tile is bound by tensor-core operations.
+//
+// Tile. A block is one warpgroup (128 threads) and computes a BM x BN = 64 x
+// 64 output tile with wgmma m64n64k8 TF32 products: A (the activations) from
+// registers, B (the weights' hi and lo) from shared memory. mma.sync
+// m16n8k8, measured first on the same pipeline, was slower (the GRU cell at
+// Sintel size 0.60 ms against 0.42 here, NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py's kernel timer). K advances in stages of BK = 32 (two KC =
+// 16 chunks, each inside one tap and one part), through a kStages-deep ring
+// in dynamic shared memory filled by cp.async: the A gather as 16-byte
+// copies, zero-filled through src-size 0 where a tap falls in the padding, a
+// channel is padding or the pixel lies past M (no branch around the copy);
+// the flow's 8-byte pixels by 8-byte copies; the weights' hi and lo as
+// 16-byte copies. Eight neighbouring threads copy the 128 bytes of one row
+// (pixel or output channel) of a stage. Both tiles are in the MMA's K-major
+// layout with the 128-byte swizzle, which keeps those copies and the A
+// fragment loads free of bank conflicts (with the unswizzled layout, whose
+// core matrices are 8 rows x 16 bytes, the GRU cell took 1.1 ms). Stage kt's
+// 12 products run on the tensor cores while the block waits for stage kt + 1
+// and issues the copies of stage kt + 3. The cp.async copies are
+// generic-proxy writes: a proxy fence after each stage lands makes them
+// visible to the tensor cores. The epilogue works in the accumulator's
+// fragment layout: a thread holds pairs of neighbouring columns and stores
+// them as float2 (bias + ReLU into a channel slice of a wider buffer, with
+// an optional flow passthrough whose two channels land in one pair; the GRU
+// gates; the GRU blend). An N = 2 convolution (the flow head's last) runs
+// one warp per pixel in f32 SIMT instead of a 64-wide tile.
 //
 // A *program* is a list of phases, each of one or two convolutions whose
 // tiles the blocks of one persistent cooperative grid share out; a
 // grid-wide barrier separates two phases, so a whole chain of convolutions
-// is one launch. The grid is sized by the occupancy calculator so that
-// every block is co-resident; a launch the card refuses returns its error,
-// and nothing falls back. Activations, which one phase writes and a later
-// one reads, are loaded with ordinary loads, ordered by the barrier; the
-// non-coherent read-only path (__ldg) is kept for the weights.
+// is one launch. The grid is sized by the occupancy calculator, given the
+// dynamic shared memory, so that every block is co-resident; a launch the
+// card refuses returns its error, and nothing falls back. Every activation
+// (a buffer one phase writes and a later one reads may be stale in another
+// SM's L1) is read through L2 only: cp.async.cg, __ldcg. The 8-byte cp.async
+// of the flow caches in L1 (.ca), which is safe because the flow is an
+// input of the launch, never written by it.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace conv_phase {
 
-constexpr int BM = 64;     // pixels per tile
-constexpr int BN = 64;     // output channels per tile
-constexpr int BK = 16;     // reduction slice
-constexpr int kThreads = 256;
+constexpr int BM = 64;      // pixels per tile
+constexpr int BN = 64;      // output channels per tile
+constexpr int BK = 32;      // reduction depth of one pipeline stage
+constexpr int KC = 16;      // a chunk of K that lies inside one tap and part
+constexpr int kStages = 4;  // depth of the cp.async ring
+constexpr int kThreads = 128;  // one warpgroup
 constexpr int kWarps = kThreads / 32;
-constexpr int kPadA = 4;   // shared-memory row padding of the A tile
+constexpr int kNt = BN / 8;    // a thread's accumulator: 8-column blocks
+// Shared-memory tiles are in the MMA's canonical K-major layout with the
+// 128-byte swizzle: a row's BK = 32 K entries are 128 bytes, 8 rows a
+// 1024-byte atom (kSBO apart), and the row's 16-byte chunk c lies at
+// position c ^ (row % 8), so that the 8 chunks of a row, and one chunk of
+// 8 rows, each fill all 32 banks.
+constexpr int kSBO = 1024;
+// The loaders: 8 threads copy the 128 bytes of a stage of one pixel (A) or
+// output channel (B), kRowStep rows at a time.
+constexpr int kRowStep = kThreads / (BK / 4);
+constexpr int kARows = BM / kRowStep, kBRows = BN / kRowStep;
+constexpr int kRowDst = kRowStep / 8 * (kSBO / 4);  // shared floats kRowStep rows on
+constexpr int kR = 3;       // the largest kernel radius (convf1's 7 x 7)
 constexpr int kMaxParts = 3;
 constexpr int kMaxConvs = 2;
 constexpr int kMaxPhases = 9;
+static_assert(BK == 2 * KC, "a stage is two chunks");
+static_assert(kStages >= 3, "a stage in flight while the next is awaited");
+static_assert(BK * 4 == 128, "a stage of a row is one 128-byte swizzle row");
+static_assert(kRowStep % 8 == 0, "a loader's rows share their place in the swizzle");
+static_assert(BM == 64 && kThreads == 128, "one m64 warpgroup MMA a tile");
 
 enum Epilogue : int {
   kBiasRelu = 0,  // out[m, off + n] = relu(acc + b); with `flow`, channels
@@ -64,7 +131,8 @@ struct Conv {
   int cin[kMaxParts];
   int nparts;
   int ky, kx;                  // odd kernel size, zero padding ky/2, kx/2
-  const float* w;              // (packed_rows, ldw) row-major
+  const float* w;              // hi then lo, each (ldw, packed_rows) row-major;
+                               // kBiasWarp: one (taps * cin, 2) f32 matrix
   const float* bias;           // (ldw)
   int N, ldw;
   int epi;
@@ -87,10 +155,17 @@ struct Program {
   int M, H, W;
 };
 
-struct Smem {
-  float As[2][BK][BM + kPadA];
-  float Bs[2][BK][BN];
+struct __align__(1024) Smem {
+  float A[kStages][BM * BK];     // pixels x K
+  float B[kStages][2][BN * BK];  // channels x K, hi and lo
 };
+
+// Float offset of the 16-byte chunk (row, K entries 4 c .. 4 c + 3) in a
+// swizzled tile.
+__device__ __forceinline__ int chunk_at(int row, int c) {
+  return (row >> 3) * (kSBO / 4) + (row & 7) * (BK) + ((c ^ (row & 7)) * 4);
+}
+constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -98,12 +173,12 @@ __host__ __device__ inline bool two_channel(const Conv& c) {
   return c.nparts == 1 && c.cin[0] == 2;
 }
 
-// Rows of the packed weight matrix.
+// Rows of the packed weight matrix (of each of hi and lo).
 __host__ __device__ inline int packed_rows(const Conv& c) {
   const int taps = c.ky * c.kx;
-  if (two_channel(c)) return round_up(2 * taps, BK);
+  if (two_channel(c)) return round_up(2 * taps, KC);
   int per_tap = 0;
-  for (int p = 0; p < c.nparts; ++p) per_tap += round_up(c.cin[p], BK);
+  for (int p = 0; p < c.nparts; ++p) per_tap += round_up(c.cin[p], KC);
   return taps * per_tap;
 }
 
@@ -113,15 +188,101 @@ __host__ __device__ inline int conv_tiles(const Conv& c, int M) {
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
-// An activation load: an ordinary (weak, L1-cached) load, which the grid
-// barrier orders after the previous phase's stores. Never __ldg: a buffer
-// written in one phase of a launch is not read-only for the launch.
+// An activation load, through L2 only: a buffer written in one phase of a
+// launch is neither read-only for the launch nor coherent in L1.
 template <typename T>
 __device__ __forceinline__ T act(const T* p) {
-  return *p;
+  return __ldcg(p);
 }
 
-// One 64x64 output tile of convolution `c`.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared through L2 only; zero-filled when !valid (the
+// source is then not read, but must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes, cached in L1: only for inputs that the launch never writes.
+__device__ __forceinline__ void cp_async8_readonly(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// hi = x rounded to TF32 (to nearest, ties away from zero: cvt.rna.tf32 in
+// two integer operations), lo = x - hi exactly. The tensor core reads the
+// top 11 bits of lo's significand, so x = hi + lo to 2^-21 relative.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// A wgmma shared-memory matrix descriptor of a K-major tile with the
+// 128-byte swizzle, its atoms 1024-byte aligned, starting at `p` (an atom's
+// start plus the K offset in bytes; the leading offset is unused).
+__device__ __forceinline__ uint64_t gmma_desc(const float* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(kSBO >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// d (+)= a * b over one k8 step, a 64 x 64 x 8 TF32 product of the
+// warpgroup on the tensor cores with f32 accumulation: A from registers
+// (warp w's rows 16 w .. 16 w + 15 in the m16n8k8 fragment layout), B
+// from shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before the tensor
+// cores' (async proxy) reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One BM x BN output tile of convolution `c`.
 __device__ void conv_tile(const Conv& c, int M, int H, int W, int tile, Smem& sm) {
   const int tid = threadIdx.x;
   const int mtiles = (M + BM - 1) / BM;
@@ -133,177 +294,227 @@ __device__ void conv_tile(const Conv& c, int M, int H, int W, int tile, Smem& sm
   const float* in1 = c.in[1];
   const float* in2 = c.in[2];
   const int cin0 = c.cin[0], cin1 = c.cin[1], cin2 = c.cin[2];
-  const int rows0 = round_up(cin0, BK);
-  const int rows1 = c.nparts > 1 ? round_up(cin1, BK) : 0;
-  const int rows2 = c.nparts > 2 ? round_up(cin2, BK) : 0;
-  const int per_tap = rows0 + rows1 + rows2;
-  const int ksteps = packed_rows(c) / BK;
-  const int ldw = c.ldw;
-  const float* wp = c.w;
+  const int chunks0 = round_up(cin0, KC) / KC;
+  const int chunks1 = c.nparts > 1 ? round_up(cin1, KC) / KC : 0;
+  const int chunks2 = c.nparts > 2 ? round_up(cin2, KC) / KC : 0;
+  const int per_tap = chunks0 + chunks1 + chunks2;
+  const int krows = packed_rows(c);
+  const int nchunks = krows / KC;
+  const int ksteps = (krows + BK - 1) / BK;
 
-  // A loader: one pixel row, four consecutive K entries of the slice.
-  const int a_row = tid >> 2;
-  const int a_k = (tid & 3) * 4;
-  const int a_m = m0 + a_row;
-  const bool a_live = a_m < M;
-  const int a_x = a_m % W;
-  const int a_y = (a_m / W) % H;
-  // B loader: one weight row, four consecutive output channels.
-  const int b_k = tid >> 4;
-  const int b_n = (tid & 15) * 4;
-
-  auto pixel = [&](int dy, int dx, int& src) -> bool {
-    src = a_m + dy * W + dx;
-    return a_live && a_y + dy >= 0 && a_y + dy < H && a_x + dx >= 0 && a_x + dx < W;
-  };
-  // Where the next A slice starts: its row within the tap's K rows and the
-  // tap's offset. Slices are loaded in order, so this walks forward with
-  // no division (a slice never straddles a tap or a part).
-  int r0 = 0, dy = -(ky / 2), dx = -(kx / 2);
-  auto load_a = [&](int kt) -> float4 {
-    int src;
-    if (two) {  // K entries (tap, channel) = (k/2, k%2) .. (k/2 + 1, 1)
-      const int t0 = (kt * BK + a_k) >> 1;
-      float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
-      if (t0 < taps && pixel(t0 / kx - ky / 2, t0 % kx - kx / 2, src))
-        lo = act(reinterpret_cast<const float2*>(in0) + src);
-      if (t0 + 1 < taps && pixel((t0 + 1) / kx - ky / 2, (t0 + 1) % kx - kx / 2, src))
-        hi = act(reinterpret_cast<const float2*>(in0) + src);
-      return make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
-    int r = r0 + a_k;
-    const float* base = in0;
-    int cin = cin0;
-    if (r >= rows0) {
-      r -= rows0;
-      if (r >= rows1) {
-        r -= rows1;
-        base = in2;
-        cin = cin2;
-      } else {
-        base = in1;
-        cin = cin1;
-      }
-    }
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    // cin is a multiple of 4, so four channels are all real or all padding
-    if (r < cin && pixel(dy, dx, src))
-      v = act(reinterpret_cast<const float4*>(base + (long long)src * cin + r));
-    r0 += BK;
-    if (r0 == per_tap) {
-      r0 = 0;
-      if (++dx > kx / 2) {
-        dx = -(kx / 2);
-        ++dy;
-      }
-    }
-    return v;
-  };
-  auto load_b = [&](int kt) -> float4 {
-    const long long row = (long long)kt * BK + b_k;
-    return __ldg(reinterpret_cast<const float4*>(wp + row * ldw + n0 + b_n));
-  };
-  auto store = [&](int buf, float4 av, float4 bv) {
-    sm.As[buf][a_k + 0][a_row] = av.x;
-    sm.As[buf][a_k + 1][a_row] = av.y;
-    sm.As[buf][a_k + 2][a_row] = av.z;
-    sm.As[buf][a_k + 3][a_row] = av.w;
-    *reinterpret_cast<float4*>(&sm.Bs[buf][b_k][b_n]) = bv;
-  };
-
-  const int ty = tid >> 4;  // output rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // output cols tx*4 .. tx*4+3
-  float acc[4][4];
+  // The loaders: 16-byte column l_c of the stage (chunk l_c / 4), rows
+  // l_r0 + kRowStep i (pixels of A, output channels of B), at shared float
+  // offset dst + kRowDst i of a tile.
+  const int l_c = tid & 7;
+  const int l_r0 = tid >> 3;
+  const int dst = chunk_at(l_r0, l_c);
+  // this thread's first weight row (hi; lo lies lo_off further) and K entry
+  const float* w_src = c.w + (long long)(n0 + l_r0) * krows + l_c * 4;
+  const long long w_row = (long long)kRowStep * krows, lo_off = (long long)c.ldw * krows;
+  const int a_half = l_c >> 2;
+  const int a_f = (l_c & 3) * 4;  // first K entry of the float4 in its chunk
+  // Each pixel row's valid tap offsets: bit dx + kR of a_ok when its column
+  // + dx lies in the image, bit dy + kR + 8 when its row + dy does; none
+  // past M.
+  int a_m[kARows], a_ok[kARows];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kARows; ++i) {
+    a_m[i] = m0 + l_r0 + kRowStep * i;
+    const int x = a_m[i] % W, y = (a_m[i] / W) % H;
+    int ok = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  store(0, load_a(0), load_b(0));
-  __syncthreads();
-  int buf = 0;
-  for (int kt = 0; kt < ksteps; ++kt) {
-    float4 next_a, next_b;
-    const bool more = kt + 1 < ksteps;
-    if (more) {
-      next_a = load_a(kt + 1);
-      next_b = load_b(kt + 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.As[buf][kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.Bs[buf][kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1, next_a, next_b);
-    __syncthreads();  // also frees shared memory for the block's next tile
-    buf ^= 1;
+    for (int d = -kR; d <= kR; ++d)
+      ok |= (x + d >= 0 && x + d < W) << (d + kR) | (y + d >= 0 && y + d < H) << (d + kR + 8);
+    a_ok[i] = a_m[i] < M ? ok : 0;
   }
+  auto inside = [&](int i, int dy, int dx) {
+    return (a_ok[i] >> (dx + kR)) & (a_ok[i] >> (dy + kR + 8)) & 1;
+  };
+  // This thread's next chunk q = (BK / KC) kt + a_half: its tap (ty, tx)
+  // and its chunk w within the tap, walked forward without a division (the
+  // stages are loaded in order).
+  int w_ty = 0, w_tx = 0, w_c = a_half;
+  while (w_c >= per_tap) {
+    w_c -= per_tap;
+    if (++w_tx == kx) w_tx = 0, ++w_ty;
+  }
+  auto load_stage = [&](int kt, int slot) {
+    const int q = kt * (BK / KC) + a_half;  // this thread's chunk
+    if (two) {  // K entries (tap, channel) = (k / 2, k % 2), 8-byte pixels
+      const int t0 = (q * KC + a_f) / 2;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tap = t0 + e;
+        const int dy = tap / kx - ky / 2, dx = tap % kx - kx / 2;
+#pragma unroll
+        for (int i = 0; i < kARows; ++i) {
+          const bool ok = tap < taps && inside(i, dy, dx);
+          const float* src = ok ? in0 + 2LL * (a_m[i] + dy * W + dx) : in0;
+          cp_async8_readonly(&sm.A[slot][dst + kRowDst * i + 2 * e], src, ok);
+        }
+      }
+    } else {
+      const float* base = in0;
+      int cin = cin0, r = 0, dy = 0, dx = 0;
+      bool ok = false;
+      if (q < nchunks) {
+        int w = w_c;
+        if (w >= chunks0) {
+          w -= chunks0;
+          if (w >= chunks1) {
+            w -= chunks1;
+            base = in2;
+            cin = cin2;
+          } else {
+            base = in1;
+            cin = cin1;
+          }
+        }
+        r = w * KC + a_f;
+        dy = w_ty - ky / 2;
+        dx = w_tx - kx / 2;
+        // cin is a multiple of 4: a float4 is all real or all padding
+        ok = r < cin;
+        w_c += BK / KC;
+        while (w_c >= per_tap) {
+          w_c -= per_tap;
+          if (++w_tx == kx) w_tx = 0, ++w_ty;
+        }
+      }
+      const float* at = base + (long long)(dy * W + dx) * cin + r;
+#pragma unroll
+      for (int i = 0; i < kARows; ++i) {
+        const bool v = ok && inside(i, dy, dx);
+        const float* src = v ? at + (long long)a_m[i] * cin : base;
+        cp_async16(&sm.A[slot][dst + kRowDst * i], src, v);
+      }
+    }
+    const bool bv = kt * BK + l_c * 4 < krows;  // krows is a multiple of 4
+    const float* w = bv ? w_src + kt * BK : c.w;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      cp_async16(&sm.B[slot][0][dst + kRowDst * i], w + w_row * i, bv);
+      cp_async16(&sm.B[slot][1][dst + kRowDst * i], w + w_row * i + lo_off, bv);
+    }
+  };
 
-  const int n = n0 + tx * 4;
-  const float4 bias = __ldg(reinterpret_cast<const float4*>(c.bias + n));
-  const float bb[4] = {bias.x, bias.y, bias.z, bias.w};
+  // The tile's sum and the partial sum of a stage.
+  float acc[kNt][4], part[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.f;
+
+  // A fragments: warp w's thread (g, tq) holds rows r = 16 w + g and r + 8
+  // at K entries tq and tq + 4 of each k8 step.
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = (tid >> 5) * 16;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ksteps) load_stage(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  fence_async_shared();
+  __syncthreads();  // stage 0 landed and is visible to the tensor cores
+  // Stage kt's products run on the tensor cores while the block waits for
+  // stage kt + 1 and issues the copies of stage kt + kStages - 1.
+  for (int kt = 0; kt < ksteps; ++kt) {
+    const int slot = kt % kStages;
+    uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 8 * s + tq + 4 * (q >> 1);
+        const float v = sm.A[slot][chunk_at(wm + g + 8 * (q & 1), k >> 2) + (k & 3)];
+        split_tf32(v, ah[s][q], al[s][q]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {  // k8 step s: 32 bytes into each row
+      const int k = 8 * s;
+      const uint64_t b_hi = gmma_desc(&sm.B[slot][0][k]);
+      const uint64_t b_lo = gmma_desc(&sm.B[slot][1][k]);
+      wgmma_tf32(&part[0][0], al[s], b_hi, s > 0);
+      wgmma_tf32(&part[0][0], ah[s], b_lo, 1);
+      wgmma_tf32(&part[0][0], ah[s], b_hi, 1);
+    }
+    wgmma_commit();
+    if (kt + 1 < ksteps) {
+      cp_async_wait<kStages - 3>();  // stage kt + 1 landed (this thread's part)
+      fence_async_shared();
+    }
+    // the slot refilled here held stage kt - 1, multiplied and waited for
+    const int next = kt + kStages - 1;
+    if (next < ksteps) load_stage(next, next % kStages);
+    cp_async_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    __syncthreads();  // stage kt + 1 visible; every thread done with stage kt
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // frees shared memory for the block's next tile
+  // Epilogue: warp w's thread (g, tq) holds in acc[j] rows 16 w + g and
+  // 16 w + g + 8, columns 8 j + 2 tq and 8 j + 2 tq + 1.
   const int N = c.N;
   const int half = N / 2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) break;
-    float o[4];
-    if (c.epi == kBiasRelu) {
-      float* dst = c.out + (long long)m * c.ld_out + c.out_off + n;
+  for (int j = 0; j < kNt; ++j) {
+    const int n = n0 + j * 8 + 2 * tq;
+    const float2 bias = __ldg(reinterpret_cast<const float2*>(c.bias + n));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = fmaxf(acc[i][j] + bb[j], 0.f);
-      if (n + 4 <= N) {
-        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-      } else {
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + wm + g + 8 * e;
+      if (m >= M) continue;
+      const float v0 = acc[j][2 * e] + bias.x;
+      const float v1 = acc[j][2 * e + 1] + bias.y;
+      if (c.epi == kBiasRelu) {
+        float* dst = c.out + (long long)m * c.ld_out + c.out_off + n;
+        if (n + 1 < N) {
+          *reinterpret_cast<float2*>(dst) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        } else {
+          const float o[2] = {fmaxf(v0, 0.f), fmaxf(v1, 0.f)};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (n + j < N)
-            dst[j] = o[j];
-          else if (c.flow != nullptr && n + j < N + 2)
-            dst[j] = act(c.flow + 2LL * m + (n + j - N));
+          for (int t = 0; t < 2; ++t) {
+            if (n + t < N)
+              dst[t] = o[t];
+            else if (c.flow != nullptr && n + t < N + 2)
+              dst[t] = act(c.flow + 2LL * m + (n + t - N));
+          }
         }
+      } else if (c.epi == kGates) {
+        if (n < half) {  // z half (the tile lies wholly in one half)
+          *reinterpret_cast<float2*>(c.out + (long long)m * half + n) =
+              make_float2(sigmoidf_(v0), sigmoidf_(v1));
+        } else {  // r half: emit r * h
+          const long long at = (long long)m * half + (n - half);
+          const float2 hv = act(reinterpret_cast<const float2*>(c.h + at));
+          *reinterpret_cast<float2*>(c.out1 + at) =
+              make_float2(sigmoidf_(v0) * hv.x, sigmoidf_(v1) * hv.y);
+        }
+      } else {  // kBlend
+        const long long at = (long long)m * N + n;
+        const float2 hv = act(reinterpret_cast<const float2*>(c.h + at));
+        const float2 zv = act(reinterpret_cast<const float2*>(c.z + at));
+        *reinterpret_cast<float2*>(c.out + at) =
+            make_float2((1.f - zv.x) * hv.x + zv.x * tanhf(v0),
+                        (1.f - zv.y) * hv.y + zv.y * tanhf(v1));
       }
-    } else if (c.epi == kGates) {
-      if (n < half) {  // z half (the tile lies wholly in one half)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = sigmoidf_(acc[i][j] + bb[j]);
-        *reinterpret_cast<float4*>(c.out + (long long)m * half + n) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      } else {  // r half: emit r * h
-        const int nc = n - half;
-        const float4 hv = act(reinterpret_cast<const float4*>(c.h + (long long)m * half + nc));
-        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = sigmoidf_(acc[i][j] + bb[j]) * hr[j];
-        *reinterpret_cast<float4*>(c.out1 + (long long)m * half + nc) =
-            make_float4(o[0], o[1], o[2], o[3]);
-      }
-    } else {  // kBlend
-      const long long at = (long long)m * N + n;
-      const float4 hv = act(reinterpret_cast<const float4*>(c.h + at));
-      const float4 zv = act(reinterpret_cast<const float4*>(c.z + at));
-      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float zr[4] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float q = tanhf(acc[i][j] + bb[j]);
-        o[j] = (1.f - zr[j]) * hr[j] + zr[j] * q;
-      }
-      *reinterpret_cast<float4*>(c.out + at) = make_float4(o[0], o[1], o[2], o[3]);
     }
   }
 }
 
 // An N = 2 convolution of a single part (cin a multiple of 4), one warp
-// per pixel: each lane dots four channels at a time against the two weight
-// columns, then the warp sums its lanes. Weights (taps * cin, 2), bias (2).
+// per pixel in f32 SIMT: each lane dots four channels at a time against the
+// two weight columns, then the warp sums its lanes. Weights (taps * cin,
+// 2), bias (2).
 __device__ void conv_n2_pixels(const Conv& c, int M, int H, int W, int warp, int nwarps) {
   const int lane = threadIdx.x & 31;
   const int cin = c.cin[0];
@@ -356,9 +567,13 @@ __device__ void run_phase(const Phase& ph, int M, int H, int W, Smem& sm) {
 }
 
 // The body of a program kernel. Launch it through launch_program only: the
-// grid barrier needs a cooperative launch.
+// grid barrier needs a cooperative launch, and the ring kSmemBytes of
+// dynamic shared memory.
 __device__ __forceinline__ void run_program(const Program& p) {
-  __shared__ __align__(16) Smem sm;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment: launch_program gives
+  // 1024 bytes of slack
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   for (int i = 0; i < p.nphases; ++i) {
     if (i > 0) cooperative_groups::this_grid().sync();
     run_phase(p.phase[i], p.M, p.H, p.W, sm);
@@ -473,9 +688,9 @@ inline void add_gru_phases(Program& p, const float* h, int C, const float* const
 }
 
 // Launch `kernel` (a __global__ wrapper of run_program) over the whole
-// card as a cooperative grid on `stream`. Returns a cudaError_t: the card
-// cannot run cooperative launches, the kernel fits no block on an SM, or
-// the launch was refused.
+// card as a cooperative grid on `stream`, with kSmemBytes of dynamic shared
+// memory a block. Returns a cudaError_t: the card cannot run cooperative
+// launches, the kernel fits no block on an SM, or the launch was refused.
 template <typename Kernel>
 inline cudaError_t launch_program(Kernel kernel, const Program& p, cudaStream_t stream) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -486,7 +701,12 @@ inline cudaError_t launch_program(Kernel kernel, const Program& p, cudaStream_t 
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   int work = 1;  // blocks the busiest phase can use
@@ -494,6 +714,7 @@ inline cudaError_t launch_program(Kernel kernel, const Program& p, cudaStream_t 
     int blocks = 0;
     for (int j = 0; j < p.phase[i].nconv; ++j) {
       const Conv& c = p.phase[i].conv[j];
+      if (c.ky / 2 > kR || c.kx / 2 > kR) return cudaErrorInvalidValue;
       blocks += c.epi == kBiasWarp ? (p.M + kWarps - 1) / kWarps : conv_tiles(c, p.M);
     }
     work = blocks > work ? blocks : work;
@@ -501,7 +722,7 @@ inline cudaError_t launch_program(Kernel kernel, const Program& p, cudaStream_t 
   const int grid = per_sm * sms < work ? per_sm * sms : work;
   void* args[] = {const_cast<Program*>(&p)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                    dim3(kThreads), args, 0, stream);
+                                    dim3(kThreads), args, kSmemBytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -10,8 +10,10 @@
 // padding at the image border, in f32 with f32 accumulation.
 //
 // Bound on an H100 SXM (Sintel, B=1, 55x128 pixels, Cc=324): 901,888
-// multiply-adds a pixel, 12.70 GFLOP, 0.190 ms at 67 TFLOP/s, against about
-// 13 MB of compulsory traffic (4 us at 3.35 TB/s): bound by f32 operations.
+// multiply-adds a pixel, 12.70 GFLOP, against about 13 MB of compulsory
+// traffic (4 us at 3.35 TB/s): bound by tensor-core operations, 0.077 ms on
+// the conv tile's 3xTF32 products (165 TFLOP/s of f32-grade work; 0.190
+// ms at the f32 SIMT peak of 67 TFLOP/s).
 //
 // Design: one cooperative launch of three phases of the shared conv tile
 // (conv_phase.cuh): convc1 | convf1, then convc2 | convf2 stored side by
@@ -22,7 +24,8 @@
 // 18 MB at Sintel size) stay in scratch that lives in the 50 MB L2, and a
 // grid barrier replaces the halo. convc1's K (Cc = 324) is padded per tap
 // to a multiple of 16 with zero weight rows; convf1's 2-channel input is
-// read as 8-byte pixels, two taps per 16-byte slice.
+// read as 8-byte pixels by 8-byte cp.async copies (the flow is an input of
+// the launch, so they may cache in L1).
 
 #include "conv_phase.cuh"
 

@@ -13,16 +13,23 @@
 // weights' rows per tap are [h | x0 | x1], exactly the [h | x] rows.
 //
 // Bound on an H100 SXM (Sintel, B=1, 55x128 pixels, C=128, Cx=256): the six
-// 5-tap convolutions are 2 x (5*384*256 + 5*384*128) * 2 * 7040 = 20.8 GFLOP
-// of f32 FMA, 310 us at 67 TFLOP/s, against about 20 MB of compulsory
-// traffic (6 us at 3.35 TB/s). The cell is bound by f32 operations.
+// 5-tap convolutions are 2 x (5*384*256 + 5*384*128) * 2 * 7040 = 20.8 GFLOP,
+// against about 20 MB of compulsory traffic (6 us at 3.35 TB/s). On the
+// conv tile's 3xTF32 tensor-core products (three TF32 passes, 495 / 3 =
+// 165 TFLOP/s of f32-grade work) that is 126 us; the f32 SIMT bound of the
+// plain-fmaf tile this replaces was 310 us at 67 TFLOP/s. The cell is
+// bound by tensor-core operations.
 //
 // Design: four phases of the shared conv tile (conv_phase.cuh) in one
 // cooperative launch: gates (z and r*h into scratch) then candidate+blend,
 // for each half. The gate nonlinearities and the blend run in the tile's
-// epilogue, so z, r and q never exist as pre-activation tensors; z, r*h and
-// the half-way state are the only intermediates (3 x M x C floats, in L2 at
-// Sintel size). This is plain SIMT f32: a tensor-core path is later work.
+// epilogue, in the accumulator's fragment layout, so z, r and q never
+// exist as pre-activation tensors; z, r*h and the half-way state are the
+// only intermediates (3 x M x C floats, in L2 at Sintel size). Every
+// phase is K = 5 x 384 = 1,920 deep: 60 cp.async stages of 32 a 64 x 64
+// tile. The N = 256 gate phases have 440 tiles and the N = 128 candidate
+// phases 220 at Sintel size, on 264 co-resident blocks (two a SM): in
+// either, a sixth of the SMs run one tile fewer than the rest.
 
 #include "conv_phase.cuh"
 
@@ -40,7 +47,8 @@ __global__ void __launch_bounds__(kThreads, 2) sepconv_gru_kernel(const __grid_c
 // (x1 null and Cx1 = 0 for a single x), NHWC float32, contiguous and
 // 16-byte aligned; weights packed per half as w_zr (5 (C+Cx), 2C), b_zr
 // (2C), w_q (5 (C+Cx), C), b_q (C). Scratch h1, z, rh and the result out
-// are (B, H, W, C). C must be a multiple of 64, each Cx of 16.
+// are (B, H, W, C), the packed matrices (2, rows, cols) hi then lo. C must
+// be a multiple of 64, each Cx of 16.
 // Returns a cudaError_t (0 on success); one cooperative launch on `stream`.
 extern "C" int raft_sepconv_gru(const void* h, const void* x0, const void* x1,
                                 const void* w_zr1, const void* b_zr1, const void* w_q1,
@@ -49,8 +57,8 @@ extern "C" int raft_sepconv_gru(const void* h, const void* x0, const void* x1,
                                 void* out, int batch, int height, int width, int channels,
                                 int x0_channels, int x1_channels, void* stream) {
   const bool x1_ok = x1_channels == 0 ? x1 == nullptr
-                                      : x1 != nullptr && x1_channels > 0 && x1_channels % BK == 0;
-  if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % BK != 0 ||
+                                      : x1 != nullptr && x1_channels > 0 && x1_channels % KC == 0;
+  if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % KC != 0 ||
       !x1_ok || !valid_geometry(batch, height, width)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -9,9 +9,12 @@
 // and delta (f32). Depth 'mg' stops after the GRU and emits h2.
 //
 // Bound on an H100 SXM (Sintel, B=1, 55x128 pixels, C=128, Cc=324): 'mg'
-// 33.46 GFLOP (0.499 ms at 67 TFLOP/s), 'mgf' 37.68 GFLOP (0.562 ms),
-// against about 20 MB of compulsory traffic (6 us at 3.35 TB/s): bound by
-// f32 operations.
+// 33.46 GFLOP, 'mgf' 37.68 GFLOP, against about 20 MB of compulsory
+// traffic (6 us at 3.35 TB/s). On the conv tile's 3xTF32 tensor-core
+// products (495 / 3 = 165 TFLOP/s of f32-grade work) that is 0.203 ms
+// ('mg') and 0.228 ms ('mgf'); the f32 SIMT bound of the plain-fmaf tile
+// this replaces was 0.499 and 0.562 ms at 67 TFLOP/s. Bound by tensor-core
+// operations.
 //
 // Design: one cooperative launch of 7 ('mg') or 9 ('mgf') phases of the
 // shared conv tile (conv_phase.cuh), a grid barrier between two phases:
@@ -25,6 +28,9 @@
 // 6.5 times over, and the intermediates of a tile would not fit in 228 KB of
 // shared memory. Here they live in scratch (1,152 floats a pixel at C=128,
 // 32 MB at Sintel size, mostly in the 50 MB L2) and nothing is recomputed.
+// The phases have 660, 440, 220, 440, 220, 440, 220 and 440 tiles of 64 x
+// 64 at Sintel size on 264 co-resident blocks (two a SM), then the
+// warp-per-pixel N = 2 conv.
 
 #include "conv_phase.cuh"
 
@@ -46,7 +52,8 @@ __global__ void __launch_bounds__(kThreads, 2) update_step_kernel(const __grid_c
 // the flow head's as step_cuda.pack_flow_head (null at depth 'mg');
 // scratch of B*H*W*(640 + 128 + 3C) floats; h2 (B, H, W, C); delta
 // (B, H, W, 2) at 'mgf', null at 'mg'. C must be a multiple of 64, Ci of
-// 16, Cc of 4. Returns a cudaError_t (0 on success); one cooperative
+// 16, Cc of 4. The packed matrices are (2, rows, cols), hi then lo, but
+// for the flow head's N = 2 conv. Returns a cudaError_t (0 on success); one cooperative
 // launch on `stream`.
 extern "C" int raft_update_step(const void* net, const void* inp, const void* corr,
                                 const void* flow, const void* wc1, const void* bc1,
@@ -60,7 +67,7 @@ extern "C" int raft_update_step(const void* net, const void* inp, const void* co
                                 void* delta, int batch, int height, int width, int channels,
                                 int inp_channels, int corr_channels, int flow_head,
                                 void* stream) {
-  if (channels <= 0 || channels % BN != 0 || inp_channels <= 0 || inp_channels % BK != 0 ||
+  if (channels <= 0 || channels % BN != 0 || inp_channels <= 0 || inp_channels % KC != 0 ||
       corr_channels <= 0 || corr_channels % 4 != 0 || (flow_head && delta == nullptr) ||
       !valid_geometry(batch, height, width)) {
     return (int)cudaErrorInvalidValue;

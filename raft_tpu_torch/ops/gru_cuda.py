@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
+from raft_tpu_torch.ops.conv_pack import split_tf32
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # cells computed by the CUDA kernel
@@ -61,27 +62,31 @@ def sepconv_gru_plain(h: torch.Tensor, x, convs) -> torch.Tensor:
 
 
 def pack_weights(convs) -> tuple:
-    """The kernel's weight layout, per half: ``w_zr`` (5 (C+Cx), 2C) with
-    the z and r convs merged on the output axis, ``b_zr`` (2C), ``w_q``
-    (5 (C+Cx), C), ``b_q`` (C). Rows are tap-major, input channels in
-    ``[h | x]`` order, which are also the ``[h | x0 | x1]`` rows of the
-    parts form. Returns the 8 contiguous float32 tensors
-    (w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2, b_q2)."""
+    """The kernel's weight layout, per half: ``w_zr`` (2, 2C, 5 (C+Cx))
+    with the z and r convs merged on the output axis, ``b_zr`` (2C),
+    ``w_q`` (2, C, 5 (C+Cx)), ``b_q`` (C). K (the last axis) is tap-major,
+    input channels in ``[h | x]`` order, which are also the ``[h | x0 |
+    x1]`` rows of the parts form; each K x N matrix is stored transposed
+    and split into its TF32 hi and lo parts (``ops/conv_pack.py``). Returns
+    the 8 contiguous float32 tensors (w_zr1, b_zr1, w_q1, b_q1, w_zr2,
+    b_zr2, w_q2, b_q2)."""
     def taps(w):                                  # (Cout, Cin, 1|5, 5|1)
-        return w.reshape(w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
+        return w.detach().float().reshape(
+            w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
 
     packed = []
     for (wz, bz), (wr, br), (wq, bq) in (convs[:3], convs[3:]):
         cin, c = wz.shape[1], wz.shape[0]
         w_zr = torch.cat([taps(wz), taps(wr)], dim=2).reshape(TAPS * cin, 2 * c)
-        packed += [w_zr, torch.cat([bz, br]), taps(wq).reshape(TAPS * cin, c), bq]
+        packed += [split_tf32(w_zr.t()), torch.cat([bz, br]),
+                   split_tf32(taps(wq).reshape(TAPS * cin, c).t()), bq]
     return tuple(t.detach().float().contiguous() for t in packed)
 
 
 def check_packed(packed, k: int, c: int, device) -> None:
     """Raise unless ``packed`` is ``pack_weights`` output with K = ``k``
     rows (5 taps x (C + Cx)) and C = ``c``, on ``device``."""
-    shapes = [(k, 2 * c), (2 * c,), (k, c), (c,)] * 2
+    shapes = [(2, 2 * c, k), (2 * c,), (2, c, k), (c,)] * 2
     if len(packed) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed GRU tensors, "
                          f"got {len(packed)}")

@@ -58,11 +58,12 @@ def motion_encoder_plain(flow: torch.Tensor, corr: torch.Tensor,
 
 def pack_weights(convs) -> tuple:
     """The kernel's weight layout (``ops/conv_pack.py``): ``(wc1, bc1,
-    wc2, bc2, wf1, bf1, wf2, bf2, wo, bo)``. wc1 is (round16(Cc), 256):
-    Cc rows then zero rows. wf1 is (112, 128): 49 taps x 2 flow channels,
-    then 14 zero rows. The fusing conv's rows hold, per tap, the cor row
-    group (192) and then the flo row group (64), the order of its
-    ``[cor | flo]`` input buffer; its 126 columns are padded to 128."""
+    wc2, bc2, wf1, bf1, wf2, bf2, wo, bo)``, each K x N matrix transposed
+    and split into TF32 hi and lo, ``(2, ldw, rows)``. wc1's K rows are Cc
+    rows then zero rows up to a multiple of 16. wf1's are 49 taps x 2 flow
+    channels, then 14 zero rows (112). The fusing conv's rows hold, per tap,
+    the cor row group (192) and then the flo row group (64), the order of
+    its ``[cor | flo]`` input buffer; its 126 columns are padded to 128."""
     return tuple(t for w, b in convs for t in pack_conv(w, b))
 
 
@@ -72,7 +73,7 @@ def packed_shapes(cc: int) -> list:
     shapes = []
     for cin, k, n in zip(cins, KSIZES, WIDTHS):
         ldw = round_up(n, BN)
-        shapes += [(packed_rows(cin, k * k), ldw), (ldw,)]
+        shapes += [(2, ldw, packed_rows(cin, k * k)), (ldw,)]
     return shapes
 
 

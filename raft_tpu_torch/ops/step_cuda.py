@@ -46,9 +46,9 @@ def plan_fusion(want_flow_head: bool) -> str:
 
 
 def pack_flow_head(convs) -> tuple:
-    """``(wfh1 (9C, 256), bfh1 (256), wfh2 (9*256, 2), bfh2 (2))``: rows
-    tap-major (``ops/conv_pack.py``); the N = 2 conv keeps its two
-    columns."""
+    """``(wfh1 (2, 256, 9C), bfh1 (256), wfh2 (9*256, 2), bfh2 (2))``:
+    K tap-major, wfh1 transposed and split into TF32 hi and lo
+    (``ops/conv_pack.py``); the N = 2 conv keeps its two f32 columns."""
     return tuple(t for w, b in convs for t in pack_conv(w, b))
 
 
@@ -98,7 +98,7 @@ def fused_step_cuda(net, inp, corr, flow, packed):
     gru_cuda.check_packed(gru, gru_cuda.TAPS * (C + ci + motion_cuda.OUT_CHANNELS),
                           C, dev)
     if head is not None:
-        shapes = [(9 * C, FLOW_HEAD_HIDDEN), (FLOW_HEAD_HIDDEN,),
+        shapes = [(2, FLOW_HEAD_HIDDEN, 9 * C), (FLOW_HEAD_HIDDEN,),
                   (9 * FLOW_HEAD_HIDDEN, 2), (2,)]
         if len(head) != len(shapes):
             raise ValueError(f"expected {len(shapes)} packed flow-head "

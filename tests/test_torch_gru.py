@@ -105,7 +105,8 @@ def _kernel_math(h, x, packed):
     """The arithmetic of csrc/sepconv_gru.cu written with torch ops: each
     half is an implicit GEMM over (tap, [h | x] channel) rows of the packed
     weights, reading the tap-shifted pixel or zero outside the image."""
-    w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2, b_q2 = packed
+    w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2, b_q2 = (
+        (t[0] + t[1]).t() if t.dim() == 3 else t for t in packed)  # hi + lo
     c = h.shape[-1]
 
     def shifted(t, d, vertical):
@@ -135,13 +136,14 @@ def _kernel_math(h, x, packed):
 
 def test_packed_weights_reproduce_the_cell(gru_setup):
     """The packed layout the CUDA kernel reads (tap-major rows, [h | x]
-    input channels, z‖r merged on the output axis) computes the same cell
-    as the module's own convolutions."""
+    input channels, z‖r merged on the output axis, each matrix transposed
+    as TF32 hi and lo) computes the same cell as the module's own
+    convolutions."""
     _, module, h, x, want = gru_setup
     packed = gru_cuda.pack_weights(module.convs())
     k = 5 * (C + CX)
     assert [tuple(t.shape) for t in packed] == [
-        (k, 2 * C), (2 * C,), (k, C), (C,)] * 2
+        (2, 2 * C, k), (2 * C,), (2, C, k), (C,)] * 2
     assert all(t.is_contiguous() and t.dtype == torch.float32 for t in packed)
     got = _kernel_math(_t(h), _t(x), packed)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
@@ -206,4 +208,25 @@ def test_parts_kernel_matches_plain_on_card(cuda, hw, monkeypatch):
         got = module(hid, (inp, mot))
         want = gru_cuda.sepconv_gru_plain(hid, (inp, mot), module.convs())
     assert gru_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhw", [(1, 13, 17), (8, 46, 62)])
+def test_kernel_matches_plain_at_ragged_m_and_batch(cuda, bhw, monkeypatch):
+    """The tile's edges: M = B*H*W = 221 is not a multiple of the tile's
+    64 rows, and at the chairs feature shape (B=8, 46x62) the 5x1 half's
+    taps must not read rows of the neighbouring image. x as parts, against
+    the plain version. Bar 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(7)
+    b, h, w = bhw
+    module = SepConvGRU(128, 256).to(cuda)
+    hid = _t(np.tanh(rng.standard_normal((b, h, w, 128)))).to(cuda)
+    inp = _t(np.maximum(rng.standard_normal((b, h, w, 128)), 0)).to(cuda)
+    mot = _t(rng.standard_normal((b, h, w, 128))).to(cuda)
+    with torch.inference_mode():
+        got = gru_cuda.sepconv_gru_cuda(hid, (inp, mot),
+                                        module.packed_weights())
+        want = gru_cuda.sepconv_gru_plain(hid, (inp, mot), module.convs())
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

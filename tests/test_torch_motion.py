@@ -109,13 +109,15 @@ def test_plain_matches_pallas_interpret(motion_setup):
 def test_packed_weights_reproduce_the_encoder(motion_setup):
     """The packed layout csrc/motion_fwd.cu reads (tap-major rows, Cc
     padded to 16 with zero rows, the flow's 49 taps x 2 channels then zero
-    rows, 126 columns padded to 128) computes the same encoder."""
+    rows, 126 columns padded to 128, each matrix transposed as TF32 hi and
+    lo) computes the same encoder."""
     module, _, flow, corr, want = motion_setup
     packed = module.packed_weights()
     assert [tuple(t.shape) for t in packed] == [
         tuple(s) for s in motion_cuda.packed_shapes(CC)]
     assert [tuple(t.shape) for t in packed[:6]] == [
-        (16, 256), (256,), (9 * 256, 192), (192,), (112, 128), (128,)]
+        (2, 256, 16), (256,), (2, 192, 9 * 256), (192,), (2, 128, 112),
+        (128,)]
     assert all(t.is_contiguous() and t.dtype == torch.float32
                for t in packed)
     got = replay.motion(_t(flow), _t(corr), packed)

@@ -56,3 +56,32 @@ def test_refuses_without_a_card(tmp_path):
     assert run.returncode != 0
     assert '"ok"' not in run.stdout
     assert "FAILED" in run.stderr
+
+
+def test_tensor_core_check_counts_tf32_mmas(tmp_path):
+    """The SASS check counts the tensor-core MMAs whose operands are TF32
+    (mma.sync's HMMA and Hopper's warpgroup HGMMA), and nothing else: no
+    half-precision MMA, no f32 FMA."""
+    sass = ("        /*0a10*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;\n"
+            "        /*0a20*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR8], R24 ;\n"
+            "        /*0b00*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0c00*/  HMMA.16816.F32 R4, R8, R12, R4 ;\n"
+            "        /*0d00*/  FFMA R1, R2, R3, R1 ;\n")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat <<'SASS'\n{sass}SASS\n")
+    tool.chmod(0o755)
+    assert chip_smoke.tensor_core_tf32_ops(str(tool), "lib.so") == {
+        "HGMMA.64x64x8.F32.TF32": 2, "HMMA.1688.F32.TF32": 1}
+
+
+@pytest.mark.parametrize("flops,nbytes,peak,ms,by", [
+    (37.68e9, 20e6, chip_smoke.TF32X3_FLOPS, 0.22836, "operations"),
+    (37.68e9, 20e6, chip_smoke.F32_FLOPS, 0.56239, "operations"),
+    (1e6, 20e6, chip_smoke.TF32X3_FLOPS, 0.00597, "bytes"),
+])
+def test_bound_takes_the_rate_of_the_arithmetic(flops, nbytes, peak, ms, by):
+    """The conv tile's rows are bound at a third of the TF32 rate (3xTF32),
+    the other kernels at the f32 SIMT rate; bytes over HBM either way."""
+    got_ms, got_by = chip_smoke.bound(flops, nbytes, peak=peak)
+    assert got_ms == pytest.approx(ms, rel=1e-4)
+    assert got_by == by

@@ -169,7 +169,7 @@ def test_packed_weights_reproduce_the_step(step_setup, depth):
     net, inp, corr, flow = (_t(a) for a in arrays)
     head = block.flow_head.packed_weights()
     assert [tuple(t.shape) for t in head] == [
-        (9 * C, 256), (256,), (9 * 256, 2), (2,)]
+        (2, 256, 9 * C), (256,), (9 * 256, 2), (2,)]
     mot = replay.motion(flow, corr, block.encoder.packed_weights())
     h2 = replay.gru(net, (inp, mot), block.gru.packed_weights())
     got = (h2,) if depth == "mg" else (h2, replay.flow_head(h2, head))
@@ -215,3 +215,35 @@ def test_kernel_matches_plain_on_card(cuda, hw, depth, monkeypatch):
     torch.testing.assert_close(got[0], want_h2, atol=1e-4, rtol=0)
     if depth == "mgf":
         torch.testing.assert_close(got[2], want[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhw,depth", [((1, 13, 17), "mg"),
+                                       ((1, 13, 17), "mgf"),
+                                       ((8, 46, 62), "mg")])
+def test_kernel_matches_plain_at_ragged_shapes(cuda, bhw, depth,
+                                               monkeypatch):
+    """The tile's edges at the corr width Cc = 324 (not a multiple of the
+    32-deep pipeline stage: convc1's last stage is half padding): M = 221
+    is not a multiple of the tile's 64 rows, and a batch at the chairs
+    feature shape (B=8, 46x62, the train step's 'mg') must not bleed
+    across images. Against the plain version, bar 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(8)
+    b, h, w = bhw
+    block = BasicUpdateBlock().to(cuda).eval()
+    net = _t(np.tanh(rng.standard_normal((b, h, w, 128)))).to(cuda)
+    inp = _t(np.maximum(rng.standard_normal((b, h, w, 128)), 0)).to(cuda)
+    corr = _t(rng.standard_normal((b, h, w, 324))).to(cuda)
+    flow = _t(rng.uniform(-20, 20, (b, h, w, 2))).to(cuda)
+    head = block.flow_head.packed_weights() if depth == "mgf" else None
+    packed = (block.encoder.packed_weights(), block.gru.packed_weights(),
+              head)
+    with torch.inference_mode():
+        got = step_cuda.fused_step_cuda(net, inp, corr, flow, packed)
+        want = step_cuda.fused_step_plain(net, inp, corr, flow,
+                                          _convs(block, depth))
+    if depth == "mg":
+        got, want = (got,), (want,)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=0)

@@ -6,16 +6,18 @@ the kernels themselves run only on the card.
 
 Each convolution is an implicit GEMM: per tap ``(dy, dx)`` in the kernel's
 order, each input part read at the shifted pixel (zero outside the image),
-its channels followed by zero columns up to a multiple of 16 (a 2-channel
-input is taken densely, taps x 2), then the whole row zero-padded to the
-packed matrix's rows; the product with the packed weights, plus the packed
-bias, cut to the N real output channels.
+its channels followed by zero columns up to a multiple of ``KC`` (a
+2-channel input is taken densely, taps x 2), then the whole row
+zero-padded to the packed matrix's rows; the product with the packed
+weights (the sum of their TF32 hi and lo parts), plus the packed bias, cut
+to the N real output channels. ``tests/test_torch_conv_tile.py`` replays
+the kernel's 3xTF32 products themselves.
 """
 
 import torch
 import torch.nn.functional as F
 
-BK = 16
+from raft_tpu_torch.ops.conv_pack import KC
 
 
 def shift(t, dy, dx):
@@ -30,7 +32,9 @@ def shift(t, dy, dx):
     return out
 
 
-def conv(parts, w, b, ky, kx, n):
+def columns(parts, ky, kx, rows):
+    """The implicit GEMM's A operand (B, H, W, rows): per tap, each part
+    at the shifted pixel, padded as the packed weights' K rows are."""
     cols = []
     for tap in range(ky * kx):
         dy, dx = tap // kx - ky // 2, tap % kx - kx // 2
@@ -38,11 +42,16 @@ def conv(parts, w, b, ky, kx, n):
             s = shift(p, dy, dx)
             c = p.shape[-1]
             if c != 2:
-                s = F.pad(s, (0, -(-c // BK) * BK - c))
+                s = F.pad(s, (0, -(-c // KC) * KC - c))
             cols.append(s)
     a = torch.cat(cols, dim=-1)
-    a = F.pad(a, (0, w.shape[0] - a.shape[-1]))
-    return (a @ w + b)[..., :n]
+    return F.pad(a, (0, rows - a.shape[-1]))
+
+
+def conv(parts, w, b, ky, kx, n):
+    if w.dim() == 3:            # (2, ldw, rows): hi and lo, transposed
+        w = (w[0] + w[1]).t()
+    return (columns(parts, ky, kx, w.shape[0]) @ w + b)[..., :n]
 
 
 def motion(flow, corr, packed):
