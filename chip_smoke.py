@@ -28,10 +28,16 @@ versions, trains RAFT-large for 7 steps at the chairs defaults (B=8,
 steps; B=4 with ``encoder_iterations=2``, 3 steps; ``sparse_lambda=0.1``)
 through the port's ``train`` on synthetic batches, counting kernel
 launches on every path, times each kernel beside its plain version, its
-bound and a cuDNN yardstick where one exists (the conv-tile kernels, which
-multiply in 3xTF32 on the tensor cores, at a third of the TF32 rate, with
-their f32 SIMT bound and achieved TFLOP/s beside it; their SASS is checked
-for tensor-core TF32 MMAs after the build), profiles one Sintel pair,
+bound and a cuDNN yardstick where one exists (the kernels that multiply in
+3xTF32 on the tensor cores, the conv tile's and the corr kernels', at a
+third of the TF32 rate, with their f32 SIMT bound and achieved TFLOP/s
+beside it; their SASS is checked for tensor-core TF32 MMAs after the
+build), holds the corr kernels against their plain versions on coherent
+and incoherent flows with each of their two paths forced (the shared query
+tile and the per-query warp path), times them on both kinds of flow at the
+Sintel and chairs shapes and prints the share of their (tile, level)
+blocks on the shared path there and in the serve and train phases,
+profiles one Sintel pair,
 one sparse forward, one RAFT and one sparse train step, and prints one
 JSON line of kernel numbers. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
@@ -116,6 +122,15 @@ TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
 CONV_TILE_KERNELS = ("sepconv_gru", "motion_fwd", "update_step")
+# Kernels that multiply in 3xTF32 on the tensor cores: the conv tile's, and
+# the corr kernels on their shared path (csrc/corr_tile.cuh), whose warp
+# path is f32 SIMT: their bound is taken at 165 TFLOP/s, the f32 SIMT one
+# printed beside it.
+TENSOR_CORE_KERNELS = CONV_TILE_KERNELS + ("corr_fwd", "corr_bwd")
+# The forced budgets of the corr kernels' path checks: 0 sends every
+# (tile, level) block with a non-empty box to the warp path, FORCE_SHARED
+# every block to the shared path.
+FORCE_SHARED = 10 ** 8
 
 
 def fail(msg: str):
@@ -171,18 +186,56 @@ def conv_tile_rates(ms: float, work) -> dict:
             "tflops": work[0] / ms / 1e9}
 
 
-def corr_inputs(torch, sampling, corr, rng, h, w, c=256, levels=4):
+def smooth_flow(rng, b, h, w, max_px):
+    """A smooth flow field (b, h, w, 2), x first, in feature pixels: per
+    image a translation, a rotation and a zoom about the centre drawn from
+    ``rng``, scaled so that its largest component is ``max_px``. The flows
+    RAFT produces look so to the lookup: neighbouring queries share most of
+    their windows."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    x, y = xs - (w - 1) / 2, ys - (h - 1) / 2
+    radius = max(math.hypot((w - 1) / 2, (h - 1) / 2), 1.0)
+    out = np.empty((b, h, w, 2))
+    for i in range(b):
+        tx, ty, rot, zoom = rng.uniform(-1.0, 1.0, 4)
+        out[i, ..., 0] = tx + (zoom * x - rot * y) / radius
+        out[i, ..., 1] = ty + (rot * x + zoom * y) / radius
+        out[i] *= max_px / np.abs(out[i]).max()
+    return out
+
+
+def lookup_flow(rng, b, h, w, max_px, flow):
+    """Flows for timing the lookup: ``"coherent"``, a smooth field up to
+    ``max_px`` (``smooth_flow``), or ``"incoherent"``, drawn independently
+    for every pixel, uniform in +-``max_px``: the worst case for a tile of
+    queries, whose windows then scatter over the level."""
+    if flow == "coherent":
+        return smooth_flow(rng, b, h, w, max_px)
+    return rng.uniform(-max_px, max_px, (b, h, w, 2))
+
+
+# The lookup's timing inputs, in feature pixels: flows RAFT produces at the
+# Sintel shape (+-40 image px) and at the chairs shape (+-32 image px), and
+# the independent per-pixel draws of the kernels' earlier rows.
+CORR_FLOWS = {"sintel": {"coherent": 5.0, "incoherent": 40.0},
+              "chairs": {"coherent": 4.0, "incoherent": 4.0}}
+
+
+def corr_inputs(torch, sampling, corr, rng, h, w, c=256, levels=4,
+                flow="incoherent", b=1, max_px=None):
     dev = torch.device("cuda")
-    f1 = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=torch.float32,
+    f1 = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.float32,
                       device=dev)
-    f2 = torch.tensor(rng.standard_normal((1, h, w, c)), dtype=torch.float32,
+    f2 = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.float32,
                       device=dev)
     pyramid = corr.build_feature_pyramid(f2, levels)
-    # flows up to 40 px move many windows partly or wholly off the image;
-    # non-integer by construction
-    flow = rng.uniform(-40.0, 40.0, (1, h, w, 2))
-    coords = (sampling.coords_grid(1, h, w, dev)
-              + torch.tensor(flow, dtype=torch.float32, device=dev))
+    # incoherent: independent flows up to 40 feature px (320 image px) move
+    # many windows partly or wholly off the image; non-integer by
+    # construction
+    max_px = CORR_FLOWS["sintel"][flow] if max_px is None else max_px
+    coords = (sampling.coords_grid(b, h, w, dev) + torch.tensor(
+        lookup_flow(rng, b, h, w, max_px, flow), dtype=torch.float32,
+        device=dev))
     return f1, pyramid, coords.contiguous()
 
 
@@ -364,8 +417,158 @@ def nchw(t):
 
 
 def reset_counts(counters):
+    """Every launch counter to 0, and the corr kernels' path counts."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+        if hasattr(mod, "reset_path_counts"):
+            mod.reset_path_counts()
+
+
+def shared_share(counts) -> float:
+    """The share of (tile, level) blocks on the shared path, from a
+    (shared, warp) pair of ``corr_cuda.path_counts()``."""
+    return counts[0] / max(1, counts[0] + counts[1])
+
+
+def print_path_shares(corr_cuda, label, kinds=("fwd", "bwd")):
+    """The corr kernels' path counts since the last reset, one line."""
+    counts = corr_cuda.path_counts()
+    print(f"corr path shares [{label}]: " + "; ".join(
+        f"corr_{k} shared path {counts[k][0]} of {sum(counts[k])} (tile, "
+        f"level) blocks ({100 * shared_share(counts[k]):.1f}%)"
+        for k in kinds))
+    return {k: shared_share(counts[k]) for k in kinds}
+
+
+def corr_against_plain(torch, corr_cuda, f1, pyr, coords, g, radius, want,
+                       want_d, what, err):
+    """corr_fwd and corr_bwd on these inputs against their plain outputs
+    ``want`` and ``want_d``: fails beyond TOL or CORR_BWD_REL (of the
+    largest plain gradient). Updates ``err``; returns the backward's
+    relative error and the (shared, warp) block counts of both kernels."""
+    corr_cuda.reset_path_counts()
+    with torch.inference_mode():
+        got = corr_cuda.windowed_correlation_cuda(f1, pyr, coords, radius)
+    got_d = corr_cuda.windowed_correlation_bwd_cuda(f1, pyr, coords, g,
+                                                    radius)
+    torch.cuda.synchronize()
+    counts = corr_cuda.path_counts()
+    d = float((got - want).abs().max())
+    plain = (want_d[0], *want_d[1])
+    diffs = [float((a - b).abs().max())
+             for a, b in zip((got_d[0], *got_d[1]), plain)]
+    rel = max(e / float(b.abs().max()) for e, b in zip(diffs, plain))
+    err["corr_fwd"] = max(err["corr_fwd"], d)
+    err["corr_bwd"] = max(err["corr_bwd"], *diffs)
+    print(f"corr {what} [shared fwd {100 * shared_share(counts['fwd']):.1f}%"
+          f", bwd {100 * shared_share(counts['bwd']):.1f}% of blocks]: "
+          f"corr_fwd max|kernel - plain| = {d:.3e} (bar {TOL:g}), corr_bwd "
+          f"/ max|plain| = {rel:.3e} (bar {CORR_BWD_REL:g})")
+    if not (d <= TOL and rel <= CORR_BWD_REL):
+        fail(f"a corr kernel disagrees with its plain version at {what}")
+    return rel, counts
+
+
+def lookup_cases(feat):
+    """(label, B, h, w, flows) of the corr kernels' checks and timings: the
+    golden and Sintel feature shapes at B=1 and the chairs train shape at
+    B=8 (TRAIN_B), each with its CORR_FLOWS."""
+    chairs = (TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8)
+    return ([(label, 1, h, w, CORR_FLOWS["sintel"])
+             for label, (h, w) in feat.items()]
+            + [("chairs", *chairs, CORR_FLOWS["chairs"])])
+
+
+def check_corr_paths(torch, corr_cuda, corr, sampling, rng, radius, feat,
+                     err):
+    """corr_fwd and corr_bwd against their plain versions at the golden,
+    Sintel and chairs lookup shapes (lookup_cases), on coherent and
+    incoherent flows, with each path forced (budget 0: the warp path on
+    every block with a non-empty box; FORCE_SHARED: the shared path on
+    every block). Updates ``err``; returns the worst corr_bwd error
+    relative to the largest plain gradient."""
+    worst_rel = 0.0
+    default = corr_cuda.TILE_BUDGET
+    try:
+        for label, b, h, w, flows in lookup_cases(feat):
+            for flow, max_px in flows.items():
+                f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h,
+                                              w, flow=flow, b=b,
+                                              max_px=max_px)
+                g = torch.randn(b, h, w, len(pyr) * (2 * radius + 1) ** 2,
+                                device="cuda")
+                with torch.inference_mode():
+                    want = corr_cuda.windowed_correlation_fused_plain(
+                        f1, pyr, coords, radius)
+                want_d = corr_cuda.windowed_correlation_bwd_plain(
+                    f1, pyr, coords, g, radius)
+                for path, budget in (("warp", 0), ("shared", FORCE_SHARED)):
+                    corr_cuda.TILE_BUDGET = budget
+                    rel, counts = corr_against_plain(
+                        torch, corr_cuda, f1, pyr, coords, g, radius, want,
+                        want_d, f"{label} B={b} {h}x{w} {flow}, {path} path "
+                        f"forced", err)
+                    worst_rel = max(worst_rel, rel)
+                    forced = {"warp": 1, "shared": 0}[path]
+                    if not all(counts[k][forced] > counts[k][1 - forced]
+                               for k in ("fwd", "bwd")):
+                        fail(f"the {path} path was not taken: {counts}")
+    finally:
+        corr_cuda.TILE_BUDGET = default
+    return worst_rel
+
+
+def corr_timings(torch, corr_cuda, corr, sampling, rng, radius, feat, err):
+    """corr_fwd and corr_bwd at the Sintel (B=1, 55x128) and chairs (B=8,
+    46x62) lookup shapes on coherent and incoherent flows (CORR_FLOWS),
+    C=256, 4 levels, at the default budget: each timed input first held
+    against the plain version (corr_against_plain, which updates ``err``),
+    then ms a launch, the bounds on the work these inputs need (3xTF32 and
+    f32 SIMT), and the share of (tile, level) blocks on the shared path;
+    at the Sintel shape also the plain version's ms and the work. Returns
+    ({"fwd": {"<shape> <flow>": {...}}, "bwd": {...}}, the worst corr_bwd
+    error relative to the largest plain gradient)."""
+    out = {"fwd": {}, "bwd": {}}
+    worst_rel = 0.0
+    for shape, b, h, w, flows in lookup_cases(feat):
+        if shape == "golden":
+            continue
+        for flow, max_px in flows.items():
+            f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w,
+                                          flow=flow, b=b, max_px=max_px)
+            g = torch.randn(b, h, w, len(pyr) * (2 * radius + 1) ** 2,
+                            device="cuda")
+            with torch.inference_mode():
+                want = corr_cuda.windowed_correlation_fused_plain(
+                    f1, pyr, coords, radius)
+            want_d = corr_cuda.windowed_correlation_bwd_plain(
+                f1, pyr, coords, g, radius)
+            rel, counts = corr_against_plain(
+                torch, corr_cuda, f1, pyr, coords, g, radius, want, want_d,
+                f"{shape} B={b} {h}x{w} {flow}, timed input", err)
+            worst_rel = max(worst_rel, rel)
+            runs = {"fwd": (lambda: corr_cuda.windowed_correlation_cuda(
+                                f1, pyr, coords, radius),
+                            lambda: corr_cuda.windowed_correlation_fused_plain(
+                                f1, pyr, coords, radius),
+                            corr_work(torch, f1, pyr, coords, radius)),
+                    "bwd": (lambda: corr_cuda.windowed_correlation_bwd_cuda(
+                                f1, pyr, coords, g, radius),
+                            lambda: corr_cuda.windowed_correlation_bwd_plain(
+                                f1, pyr, coords, g, radius),
+                            corr_bwd_work(torch, f1, pyr, coords, radius))}
+            for kind, (run, plain, work) in runs.items():
+                row = {"ms": time_ms(torch, run),
+                       "bound_ms": bound(*work, peak=TF32X3_FLOPS)[0],
+                       "bound_ms_f32_simt": bound(*work)[0],
+                       "shared_share": shared_share(counts[kind]),
+                       "shape": f"B={b} {h}x{w} C=256 L=4 r={radius}, "
+                                f"flows up to {max_px:g} feature px"}
+                if shape == "sintel":
+                    row["plain_ms"] = time_ms(torch, plain, n=10)
+                    row["work"] = work
+                out[kind][f"{shape} {flow}"] = row
+    return out, worst_rel
 
 
 def read_counts(counters):
@@ -1201,13 +1404,18 @@ def sparse_fixture_check(torch, pkg, counters):
     return problem
 
 
-def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
+def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius, err,
                       backward=False):
     """corr_fwd (or with ``backward`` corr_bwd, for a random cotangent) at
-    the fork lookup's three token levels (B=8 at 352x480): the kernel's
-    and the plain version's ms a launch and the bound, keyed by C, for the
+    the fork lookup's three token levels (B=8 at 352x480), each timed
+    input first held against the plain version (TOL, or CORR_BWD_REL of
+    the largest plain gradient; updates ``err``): the kernel's and the
+    plain version's ms a launch, the bounds (3xTF32 and f32 SIMT) and the
+    share of (tile, level) blocks on the shared path, keyed by C, for the
     kernel's row."""
-    out = {"ms_sparse": {}, "plain_ms_sparse": {}, "bound_ms_sparse": {}}
+    out = {"ms_sparse": {}, "plain_ms_sparse": {}, "bound_ms_sparse": {},
+           "bound_ms_f32_simt_sparse": {}, "shared_share_sparse": {}}
+    kind = "bwd" if backward else "fwd"
     for c, (h, w) in sparse_corr.items():
         f1, pyr, centers = sparse_corr_inputs(torch, rng, SPARSE_RUNS[0][1],
                                               h, w, c)
@@ -1223,11 +1431,34 @@ def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
             kernel = corr_cuda.windowed_correlation_cuda
             plain = corr_cuda.windowed_correlation_fused_plain
             work = corr_work(torch, f1, pyr, centers, radius, False)
+        corr_cuda.reset_path_counts()
+        got = kernel(*args, rescale=False)
+        want = plain(*args, rescale=False)
+        torch.cuda.synchronize()
+        if backward:
+            pairs = list(zip((got[0], *got[1]), (want[0], *want[1])))
+            d = max(float((a - b).abs().max()) for a, b in pairs)
+            off = max(float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in pairs)
+            bar = CORR_BWD_REL
+        else:
+            d = off = float((got - want).abs().max())
+            bar = TOL
+        err[f"corr_{kind}"] = max(err[f"corr_{kind}"], d)
+        print(f"corr_{kind} fork lookup C={c}, timed input: "
+              f"{'/ max|plain| ' if backward else 'max|kernel - plain| '}"
+              f"= {off:.3e} (bar {bar:g})")
+        if not off <= bar:
+            fail(f"corr_{kind} disagrees with its plain version at the "
+                 f"fork lookup's timed input, C={c}: {off:.3e}")
+        out["shared_share_sparse"][str(c)] = shared_share(
+            corr_cuda.path_counts()[kind])
         out["ms_sparse"][str(c)] = time_ms(
             torch, lambda: kernel(*args, rescale=False))
         out["plain_ms_sparse"][str(c)] = time_ms(
             torch, lambda: plain(*args, rescale=False), n=10)
-        out["bound_ms_sparse"][str(c)] = bound(*work)[0]
+        out["bound_ms_sparse"][str(c)] = bound(*work, peak=TF32X3_FLOPS)[0]
+        out["bound_ms_f32_simt_sparse"][str(c)] = bound(*work)[0]
     return out
 
 
@@ -1274,8 +1505,10 @@ def main():
         print(f"  {name}: {os.path.relpath(path, REPO)}; ptxas: "
               f"{regs[0] if regs else 'no report'}")
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for name in CONV_TILE_KERNELS:
+    sass = {}
+    for name in TENSOR_CORE_KERNELS:
         ops = tensor_core_tf32_ops(cuobjdump, paths[name])
+        sass[name] = sum(ops.values())
         print(f"  {name} SASS, tensor-core TF32 MMAs: {ops}")
         if not ops:
             fail(f"{name} has no tensor-core TF32 MMA in its SASS")
@@ -1367,6 +1600,8 @@ def main():
             if not rel <= CORR_BWD_REL:
                 fail(f"corr_bwd {what} disagrees with autograd through the "
                      f"plain lookup at {label}: {rel:.3e}")
+    corr_bwd_rel = max(corr_bwd_rel, check_corr_paths(
+        torch, corr_cuda, corr, sampling, rng, radius, feat, err))
 
     # the sparse family's kernels at its full-width shapes: the fork lookup
     # at the three token levels of 352x480 (B=8, 2 levels, no per-level
@@ -1496,6 +1731,8 @@ def main():
           f"{statistics.median(times):.2f} ms/pair "
           f"(all {', '.join(f'{t:.2f}' for t in times)}); peak memory "
           f"{peak_mib:.1f} MiB")
+    serve_shares = print_path_shares(
+        corr_cuda, f"serve step: {SERVE_PAIRS} Sintel pairs", ("fwd",))
     check_launches(launches, SERVE_PAIRS,
                    {"corr_fwd": SINTEL_ITERS, "corr_bwd": 0,
                     "update_step": SINTEL_ITERS, "motion_fwd": 0,
@@ -1564,6 +1801,8 @@ def main():
                     "sepconv_gru": 0}, unit="step")
     state, tcfg, step_ms, train_launches, train_peak = train_full_size(
         torch, pkg, weights)
+    train_shares = print_path_shares(
+        corr_cuda, f"train: {TRAIN_WARMUP + TRAIN_TIMED} chairs steps")
     steps = TRAIN_WARMUP + TRAIN_TIMED
     ms_step = statistics.median(step_ms)
     print(f"train: RAFT-large f32, B={TRAIN_B} {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
@@ -1626,7 +1865,7 @@ def main():
     def entry(name, source, replaces, ms, plain_ms, work, library_ms,
               **extra):
         path, counts, units, unit = path_of[name]
-        if name in CONV_TILE_KERNELS:
+        if name in TENSOR_CORE_KERNELS:
             bound_ms, bound_by = bound(*work, peak=TF32X3_FLOPS)
             extra.update(conv_tile_rates(ms, work))
         else:
@@ -1642,57 +1881,50 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, **extra})
 
-    # corr_bwd at the Sintel shape of the corr_fwd row (its plain version
-    # needs autograd, so outside inference mode), and at the train shape
-    h, w = feat["sintel"]
-    f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w)
-    g = torch.randn(1, h, w, len(pyr) * (2 * radius + 1) ** 2, device="cuda")
-    th, tw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
-    tf1 = torch.randn(TRAIN_B, th, tw, 256, device="cuda")
-    tpyr = corr.build_feature_pyramid(
-        torch.randn(TRAIN_B, th, tw, 256, device="cuda"), 4)
-    # chairs-like motion: flows up to 4 feature pixels (32 image pixels)
-    tcoords = (sampling.coords_grid(TRAIN_B, th, tw, "cuda")
-               + 8.0 * torch.rand(TRAIN_B, th, tw, 2, device="cuda")
-               - 4.0).contiguous()
-    tg = torch.randn(TRAIN_B, th, tw, len(tpyr) * (2 * radius + 1) ** 2,
-                     device="cuda")
-    train_bound_ms, _ = bound(*corr_bwd_work(torch, tf1, tpyr, tcoords,
-                                             radius))
-    fwd_train_bound_ms, _ = bound(*corr_work(torch, tf1, tpyr, tcoords,
-                                             radius))
-    entry("corr_bwd", "raft_tpu_torch/csrc/corr_bwd.cu",
-          "raft_tpu/ops/corr_pallas.py:276",
-          time_ms(torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
-              f1, pyr, coords, g, radius)),
-          time_ms(torch, lambda: corr_cuda.windowed_correlation_bwd_plain(
-              f1, pyr, coords, g, radius), n=10),
-          corr_bwd_work(torch, f1, pyr, coords, radius), None,
-          max_rel_err=corr_bwd_rel,
-          ms_train_shape=time_ms(
-              torch, lambda: corr_cuda.windowed_correlation_bwd_cuda(
-                  tf1, tpyr, tcoords, tg, radius)),
-          bound_ms_train_shape=train_bound_ms,
-          bound_ms_fwd_train_shape=fwd_train_bound_ms,
-          ms_fwd_train_shape=time_ms(
-              torch, lambda: corr_cuda.windowed_correlation_cuda(
-                  tf1, tpyr, tcoords, radius)),
-          **sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
-                              backward=True))
+    # the corr kernels on coherent and incoherent flows at the Sintel and
+    # chairs shapes, each timed input held against the plain version. The
+    # row's ms, plain ms and bound are at Sintel incoherent, the input of
+    # the rows before the shared tile; Sintel coherent is under *_coherent,
+    # the chairs shape's incoherent times under *_train_shape as before,
+    # and every input under by_input.
+    ct, timed_rel = corr_timings(torch, corr_cuda, corr, sampling, rng,
+                                 radius, feat, err)
+    corr_bwd_rel = max(corr_bwd_rel, timed_rel)
+    for kind, name, line, extra in (
+            ("bwd", "corr_bwd", 276, {"max_rel_err": corr_bwd_rel,
+                                      "shared_share_train": train_shares[
+                                          "bwd"]}),
+            ("fwd", "corr_fwd", 206, {"shared_share_serve": serve_shares[
+                                          "fwd"],
+                                      "shared_share_train": train_shares[
+                                          "fwd"]})):
+        main_row = ct[kind]["sintel incoherent"]
+        coherent = ct[kind]["sintel coherent"]
+        if kind == "bwd":
+            extra.update(
+                ms_train_shape=ct["bwd"]["chairs incoherent"]["ms"],
+                bound_ms_train_shape=ct["bwd"]["chairs incoherent"][
+                    "bound_ms"],
+                ms_fwd_train_shape=ct["fwd"]["chairs incoherent"]["ms"],
+                bound_ms_fwd_train_shape=ct["fwd"]["chairs incoherent"][
+                    "bound_ms"])
+        entry(name, f"raft_tpu_torch/csrc/{name}.cu",
+              f"raft_tpu/ops/corr_pallas.py:{line}", main_row["ms"],
+              main_row["plain_ms"], main_row["work"], None,
+              shape=f"sintel incoherent: {main_row['shape']}",
+              ms_coherent=coherent["ms"],
+              plain_ms_coherent=coherent["plain_ms"],
+              bound_ms_coherent=coherent["bound_ms"],
+              shape_coherent=f"sintel coherent: {coherent['shape']}",
+              sass_tf32_mma=sass[name],
+              by_input={k: {f: v for f, v in row.items() if f != "work"}
+                        for k, row in ct[kind].items()},
+              **extra,
+              **sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius,
+                                  err, backward=kind == "bwd"))
 
     with torch.inference_mode():
         h, w = feat["sintel"]
-        f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w)
-        entry("corr_fwd", "raft_tpu_torch/csrc/corr_fwd.cu",
-              "raft_tpu/ops/corr_pallas.py:206",
-              time_ms(torch, lambda: corr_cuda.windowed_correlation_cuda(
-                  f1, pyr, coords, radius)),
-              time_ms(torch, lambda: corr_cuda
-                      .windowed_correlation_fused_plain(
-                          f1, pyr, coords, radius), n=20),
-              corr_work(torch, f1, pyr, coords, radius), None,
-              **sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius))
-
         net, inp, cor, flo = update_inputs(torch, rng, h, w)
         mot = motion_cuda.motion_encoder_plain(flo, cor, m_convs)
         parts = (inp, mot)
@@ -1785,8 +2017,8 @@ def main():
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         tile = (f", f32 SIMT bound {k['bound_ms_f32_simt']:.4f} ms, "
-                f"{k['tflops']:.2f} TFLOP/s" if k["name"] in CONV_TILE_KERNELS
-                else "")
+                f"{k['tflops']:.2f} TFLOP/s"
+                if k["name"] in TENSOR_CORE_KERNELS else "")
         print(f"{k['name']}: {k['ms']:.4f} ms a launch, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}){tile}, plain "
               f"{k['plain_ms']:.4f} ms, library {lib}")
@@ -1797,21 +2029,26 @@ def main():
           f"{mg['bound_ms_f32_simt_mg']:.4f} ms, {mg['tflops_mg']:.2f} "
           f"TFLOP/s, plain {mg['plain_ms_mg']:.4f} ms, library "
           f"{mg['library_ms_mg']:.4f} ms")
-    cb = named["corr_bwd"]
-    print(f"corr_bwd at the train shape (B={TRAIN_B}, {th}x{tw}, flows up "
-          f"to 4 px): {cb['ms_train_shape']:.4f} ms a launch, bound "
-          f"{cb['bound_ms_train_shape']:.4f} ms; corr_fwd there "
-          f"{cb['ms_fwd_train_shape']:.4f} ms, bound "
-          f"{cb['bound_ms_fwd_train_shape']:.4f} ms")
-    cf = named["corr_fwd"]
-    for c in sparse_corr:
-        print(f"corr_fwd fork lookup C={c}: {cf['ms_sparse'][str(c)]:.4f} ms "
-              f"a launch, bound {cf['bound_ms_sparse'][str(c)]:.4f} ms, plain "
-              f"{cf['plain_ms_sparse'][str(c)]:.4f} ms")
-    for c in sparse_corr:
-        print(f"corr_bwd fork lookup C={c}: {cb['ms_sparse'][str(c)]:.4f} ms "
-              f"a launch, bound {cb['bound_ms_sparse'][str(c)]:.4f} ms, plain "
-              f"{cb['plain_ms_sparse'][str(c)]:.4f} ms")
+    cb, cf = named["corr_bwd"], named["corr_fwd"]
+    for k in (cf, cb):
+        for key, row in k["by_input"].items():
+            print(f"{k['name']} {key} ({row['shape']}): {row['ms']:.4f} ms "
+                  f"a launch, bound {row['bound_ms']:.4f} ms (3xTF32), "
+                  f"{row['bound_ms_f32_simt']:.4f} ms (f32 SIMT); shared "
+                  f"path on {100 * row['shared_share']:.1f}% of (tile, "
+                  f"level) blocks"
+                  + (f"; plain {row['plain_ms']:.4f} ms" if "plain_ms" in row
+                     else ""))
+        for c in sparse_corr:
+            print(f"{k['name']} fork lookup C={c}: "
+                  f"{k['ms_sparse'][str(c)]:.4f} ms a launch, bound "
+                  f"{k['bound_ms_sparse'][str(c)]:.4f} ms (3xTF32), "
+                  f"{k['bound_ms_f32_simt_sparse'][str(c)]:.4f} ms (f32 "
+                  f"SIMT), plain {k['plain_ms_sparse'][str(c)]:.4f} ms; "
+                  f"shared path on "
+                  f"{100 * k['shared_share_sparse'][str(c)]:.1f}% of blocks")
+        print(f"{k['name']} SASS, tensor-core TF32 MMAs: "
+              f"{k['sass_tf32_mma']}")
     mb = named["msda_bwd"]
     print(f"msda_bwd at the encoder shape: {mb['ms_encoder']:.4f} ms a "
           f"launch, bound {mb['bound_ms_encoder']:.4f} ms "

@@ -18,6 +18,13 @@ the sparse family samples at fixed centres). Both kernels take both lookups
 and the same widths. Nothing else runs on the card: the wrappers raise on
 inputs the kernels do not take.
 ``launches`` and ``bwd_launches`` count the kernels' launches.
+
+Each kernel block takes a tile of 8 x 8 queries at one level. Where the
+tile's windows at that level fit a box of at most ``TILE_BUDGET`` pixels,
+the block multiplies the tile by the box on the tensor cores (the shared
+path); otherwise it runs one warp per query (the warp path).
+``path_counts`` reads how many blocks took each path since
+``reset_path_counts``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,12 @@ launches = 0          # forward kernel launches (windowed_correlation_cuda)
 bwd_launches = 0      # backward kernel launches (windowed_correlation_bwd_cuda)
 MAX_LEVELS = 4
 CHANNELS = (128, 192, 256, 384, 512)   # and any C under 128
+# The largest box (pixels of one level) a tile takes the shared path with,
+# in both kernels; C = 64 and the widths in CHANNELS have that path, another
+# C under 128 only the warp path. 1024 was the fastest of 256-2048 for both
+# kernels on coherent and incoherent flows (scripts/corr_tile_bench.py).
+TILE_BUDGET = 1024
+_path_counts: dict = {}   # device -> int64 (4,): fwd shared, warp, bwd shared, warp
 
 
 def _window_delta(radius: int, device=None) -> torch.Tensor:
@@ -100,7 +113,35 @@ def windowed_correlation_bwd_plain(fmap1, pyramid2, coords, grad,
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
+
+
+def _counts(device) -> torch.Tensor:
+    if device not in _path_counts:
+        # a normal tensor even under inference mode, so that
+        # reset_path_counts may zero it anywhere
+        with torch.inference_mode(False):
+            _path_counts[device] = torch.zeros(4, dtype=torch.int64,
+                                               device=device)
+    return _path_counts[device]
+
+
+def reset_path_counts() -> None:
+    """Zero the kernels' path counts on every device."""
+    for counts in _path_counts.values():
+        counts.zero_()
+
+
+def path_counts() -> dict:
+    """Blocks, one per (tile of queries, level), that took the shared and
+    the warp path since ``reset_path_counts``, summed over the devices:
+    ``{"fwd": (shared, warp), "bwd": (shared, warp)}``. Synchronises with
+    the device."""
+    total = [0, 0, 0, 0]
+    for counts in _path_counts.values():
+        total = [a + int(b) for a, b in zip(total, counts.tolist())]
+    return {"fwd": tuple(total[:2]), "bwd": tuple(total[2:])}
 
 
 def _check_lookup(fmap1, pyramid2, coords, radius: int) -> list:
@@ -158,11 +199,13 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
     win = 2 * radius + 1
     out = torch.empty(B, H, W, len(pyramid2) * win * win, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = _counts(dev)
     with torch.cuda.device(dev):
         err = build.bind("corr_fwd", "raft_corr_fwd", _ARGTYPES)(
             fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
             *dims, len(pyramid2), coords.data_ptr(), out.data_ptr(), B,
-            H * W, C, radius, int(rescale), _scale_div(C, scale), stream)
+            H, W, C, radius, int(rescale), _scale_div(C, scale), TILE_BUDGET,
+            counts.data_ptr(), stream)
     if err:
         raise RuntimeError(f"corr_fwd kernel failed: cudaError {err}")
     launches += 1
@@ -170,8 +213,8 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
 
 
 def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
@@ -181,25 +224,26 @@ def windowed_correlation_bwd_cuda(fmap1, pyramid2, coords, grad,
     gradients of ``windowed_correlation_cuda`` for the cotangent ``grad``
     (B, H, W, L*(2r+1)^2). Operands as for the forward, ``grad`` float32
     and contiguous too. Returns ``(df1 (B, H, W, C), (df2_l (B, H_l, W_l,
-    C), ...))``, float32; the coordinates get no gradient. The df2 levels
-    are summed with atomics, so they are not bit-reproducible from run to
-    run."""
+    C), ...))``, float32; the coordinates get no gradient. df1 (over the
+    levels) and the df2 levels are summed with atomics, so they are not
+    bit-reproducible from run to run."""
     global bwd_launches
     dims = _check_lookup(fmap1, pyramid2, coords, radius)
     B, H, W, C = fmap1.shape
     dev = fmap1.device
     win = 2 * radius + 1
     check_operand("grad", grad, (B, H, W, len(pyramid2) * win * win), dev)
-    df1 = torch.empty_like(fmap1)
+    df1 = torch.zeros_like(fmap1)
     df2s = tuple(torch.zeros_like(f2) for f2 in pyramid2)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = _counts(dev)
     with torch.cuda.device(dev):
         err = build.bind("corr_bwd", "raft_corr_bwd", _BWD_ARGTYPES)(
             fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
             *dims, len(pyramid2), coords.data_ptr(), grad.data_ptr(),
             df1.data_ptr(), *[d.data_ptr() for d in _padded(df2s)], B,
-            H * W, C, radius, int(rescale), 1.0 / _scale_div(C, scale),
-            stream)
+            H, W, C, radius, int(rescale), 1.0 / _scale_div(C, scale),
+            TILE_BUDGET, counts.data_ptr() + 16, stream)
     if err:
         raise RuntimeError(f"corr_bwd kernel failed: cudaError {err}")
     bwd_launches += 1
