@@ -36,8 +36,13 @@ build), holds the corr kernels against their plain versions on coherent
 and incoherent flows with each of their two paths forced (the shared query
 tile and the per-query warp path), times them on both kinds of flow at the
 Sintel and chairs shapes and prints the share of their (tile, level)
-blocks on the shared path there and in the serve and train phases,
-profiles one Sintel pair,
+blocks on the shared path there and in the serve and train phases, holds
+the MSDA kernels against their plain versions on the decoder's and the
+encoder's incoherent inputs and on the encoder's coherent one (its
+reference points and the sampling heads' initial offsets) at the
+forward's default slots a group and with its groups forced to one slot
+and to a warp, times them there queued behind a sleep (device time,
+``ms_q*``), profiles one Sintel pair,
 one sparse forward, one RAFT and one sparse train step, and prints one
 JSON line of kernel numbers. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
@@ -65,6 +70,9 @@ SINTEL_ITERS = 32
 SERVE_PAIRS = 5
 CHAIN_PAIRS = 2
 TIMED_LAUNCHES = 30
+# cycles of torch.cuda._sleep ahead of queued_ms's launches: about 10 ms,
+# longer than the host takes to queue 30 launches of a wrapper
+QUEUE_CYCLES = 20_000_000
 # The train phase: chairs defaults (TrainConfig), 2 warm-up and 5 timed
 # steps; the kernel-vs-plain train step at a size the plain lookup holds.
 TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (368, 496), 12
@@ -131,6 +139,9 @@ TENSOR_CORE_KERNELS = CONV_TILE_KERNELS + ("corr_fwd", "corr_bwd")
 # (tile, level) block with a non-empty box to the warp path, FORCE_SHARED
 # every block to the shared path.
 FORCE_SHARED = 10 ** 8
+# The MSDA forward's forced slots a group (msda_cuda.FWD_SLOTS, at most a
+# warp): one slot of D/4 lanes per (image, query, head), and a warp.
+MSDA_FORCE = {"one_slot": 1, "warp": 32}
 
 
 def fail(msg: str):
@@ -150,6 +161,25 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in ev:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def queued_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
+    """Median over ``n`` calls of ``fn`` between two CUDA events, queued
+    behind a sleep on the stream, so that the card never waits for the
+    host between them: the device time of a kernel shorter than its
+    wrapper's Python, which ``time_ms`` would also hold."""
+    for _ in range(3):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     for start, end in ev:
         start.record()
         fn()
@@ -1169,6 +1199,127 @@ def msda_inputs(torch, rng, b, lq, d, m=8, p=4, levels=SPARSE_LEVELS):
     return value, loc, aw.reshape(b, lq, m, nl, p).contiguous()
 
 
+def msda_coherent_inputs(torch, rng, b, d, m=8, p=4, levels=SPARSE_LEVELS):
+    """What the dense encoder samples: every token a query at its reference
+    point (``DeformableTransformerEncoder.get_reference_points``) plus the
+    sampling heads' initial offsets (``_directional_bias``, in pixels of
+    each level, as ``MSDeformAttn`` scales them) with 0.5 px of seeded
+    noise; value and softmaxed weights as ``msda_inputs``. On the card."""
+    from raft_tpu_torch.models.deformable import (
+        DeformableTransformerEncoder, _directional_bias)
+
+    dev = torch.device("cuda")
+    nl = len(levels)
+    ref = DeformableTransformerEncoder.get_reference_points(levels, dev)
+    lq = ref.shape[1]
+
+    def put(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    off = (put(_directional_bias(m, nl, p)).view(1, 1, m, nl, p, 2)
+           + put(rng.normal(0.0, 0.5, (b, lq, m, nl, p, 2))))
+    norm = put([[w, h] for h, w in levels]).view(1, 1, 1, nl, 1, 2)
+    loc = (ref[:, :, None, :, None, :] + off / norm).contiguous()
+    value = put(rng.standard_normal((b, lq, m, d)))
+    aw = torch.softmax(put(rng.standard_normal((b, lq, m, nl * p))), -1)
+    return value, loc, aw.reshape(b, lq, m, nl, p).contiguous()
+
+
+def msda_against_plain(torch, msda, msda_cuda, value, loc, aw, g, what,
+                       err):
+    """msda_fwd and msda_bwd on these inputs against their plain versions:
+    fails beyond TOL, or CORR_BWD_REL of the largest plain gradient for
+    each of the three gradients. Updates ``err``; returns the backward's
+    worst relative error."""
+    with torch.inference_mode():
+        got = msda_cuda.ms_deform_attn_cuda(value, SPARSE_LEVELS, loc, aw)
+        want = msda.ms_deform_attn_plain(value, SPARSE_LEVELS, loc, aw)
+    got_d = msda_cuda.ms_deform_attn_bwd_cuda(value, SPARSE_LEVELS, loc, aw,
+                                              g)
+    want_d = msda.ms_deform_attn_bwd_plain(value, SPARSE_LEVELS, loc, aw, g)
+    torch.cuda.synchronize()
+    d = float((got - want).abs().max())
+    diffs = [float((a - b).abs().max()) for a, b in zip(got_d, want_d)]
+    rels = [e / float(b.abs().max()) for e, b in zip(diffs, want_d)]
+    err["msda_fwd"] = max(err["msda_fwd"], d)
+    err["msda_bwd"] = max(err["msda_bwd"], *diffs)
+    print(f"msda {what}: msda_fwd max|kernel - plain| = {d:.3e} (bar "
+          f"{TOL:g}); msda_bwd / max|plain| d_value {rels[0]:.3e}, d_loc "
+          f"{rels[1]:.3e}, d_aw {rels[2]:.3e} (bar {CORR_BWD_REL:g})")
+    if not (d <= TOL and max(rels) <= CORR_BWD_REL):
+        fail(f"an MSDA kernel disagrees with its plain version at {what}")
+    return max(rels)
+
+
+def msda_timings(torch, msda, msda_cuda, rng, shapes, err):
+    """msda_fwd and msda_bwd at the decoder's and the encoder's shapes on
+    the incoherent input of ``msda_inputs`` and at the encoder's on the
+    coherent one of ``msda_coherent_inputs``: each input held against the
+    plain versions at the forward's default slots and with each of
+    MSDA_FORCE's (msda_against_plain, which updates ``err``), the forward
+    timed at each and the backward once by ``queued_ms``
+    (device time); the incoherent inputs at the default slots also by
+    ``time_ms`` (the rows' ``ms``, as before) with the plain version's ms
+    and the work. Returns ({"fwd": {input: row}, "bwd": {...}}, the worst
+    msda_bwd error relative to the largest plain gradient)."""
+    out = {"fwd": {}, "bwd": {}}
+    worst = 0.0
+    cases = [(f"{label} incoherent", b, lq, d) for label, (b, lq, d)
+             in shapes.items()] + [("encoder coherent", *shapes["encoder"])]
+    default = msda_cuda.FWD_SLOTS
+    try:
+        for key, b, lq, d in cases:
+            if key == "encoder coherent":
+                value, loc, aw = msda_coherent_inputs(torch, rng, b, d)
+            else:
+                value, loc, aw = msda_inputs(torch, rng, b, lq, d)
+            g = torch.randn(b, lq, 8 * d, device="cuda")
+            shape = f"B={b} Lq={lq} M=8 D={d} L=6 P=4"
+            rows = {"fwd": {"shape": shape}, "bwd": {"shape": shape}}
+            for path, forced in (("default", default), *MSDA_FORCE.items()):
+                msda_cuda.FWD_SLOTS = forced
+                slots = msda_cuda.fwd_slots(d)
+                rel = msda_against_plain(
+                    torch, msda, msda_cuda, value, loc, aw, g,
+                    f"{key} {shape}, {path} ({slots} slots a group)", err)
+                worst = max(worst, rel)
+                suffix = "" if path == "default" else f"_{path}"
+                with torch.inference_mode():
+                    rows["fwd"][f"ms_q{suffix}"] = queued_ms(
+                        torch, lambda: msda_cuda.ms_deform_attn_cuda(
+                            value, SPARSE_LEVELS, loc, aw))
+                if path == "default":
+                    rows["bwd"]["ms_q"] = queued_ms(
+                        torch, lambda: msda_cuda.ms_deform_attn_bwd_cuda(
+                            value, SPARSE_LEVELS, loc, aw, g))
+                    rows["fwd"]["slots"] = slots
+            msda_cuda.FWD_SLOTS = default
+            if key.endswith("incoherent"):
+                with torch.inference_mode():
+                    rows["fwd"]["ms"] = time_ms(
+                        torch, lambda: msda_cuda.ms_deform_attn_cuda(
+                            value, SPARSE_LEVELS, loc, aw))
+                    rows["fwd"]["plain_ms"] = time_ms(
+                        torch, lambda: msda.ms_deform_attn_plain(
+                            value, SPARSE_LEVELS, loc, aw), n=10)
+                rows["bwd"]["ms"] = time_ms(
+                    torch, lambda: msda_cuda.ms_deform_attn_bwd_cuda(
+                        value, SPARSE_LEVELS, loc, aw, g))
+                rows["bwd"]["plain_ms"] = time_ms(
+                    torch, lambda: msda.ms_deform_attn_bwd_plain(
+                        value, SPARSE_LEVELS, loc, aw, g), n=10)
+            rows["fwd"]["work"] = msda_work(torch, value, SPARSE_LEVELS, loc,
+                                            aw)
+            rows["bwd"]["work"] = msda_bwd_work(torch, value, SPARSE_LEVELS,
+                                                loc, aw)
+            for kind in ("fwd", "bwd"):
+                rows[kind]["bound_ms"], rows[kind]["bound_by"] = bound(
+                    *rows[kind]["work"])
+                out[kind][key] = rows[kind]
+    finally:
+        msda_cuda.FWD_SLOTS = default
+    return out, worst
+
+
 def msda_corners(torch, value, levels, loc):
     """The in-range corners of every sample on these inputs, and the
     distinct value rows (pixel, head) they touch."""
@@ -1213,7 +1364,7 @@ def msda_bwd_work(torch, value, levels, loc, aw):
     (corner weights, the weight and location gradients); the locations,
     weights and cotangent read once, each distinct value row that an
     in-range corner touches read once, and the three gradients written
-    once (d_value whole: the wrapper zeroes it)."""
+    once (d_value whole: the kernel writes every element)."""
     b, s, m, d = value.shape
     lq = loc.shape[1]
     corners, distinct = msda_corners(torch, value, levels, loc)
@@ -1971,49 +2122,40 @@ def main():
               library_ms_mg=step["mg"]["library_ms"],
               **{f"{k}_mg": v for k, v in conv_tile_rates(
                   step["mg"]["ms"], step["mg"]["work"]).items()})
-        msda_times = {}
-        for label, (b, lq, d_head) in msda_shapes.items():
-            value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
-            msda_times[label] = (
-                time_ms(torch, lambda: msda_cuda.ms_deform_attn_cuda(
-                    value, SPARSE_LEVELS, loc, aw)),
-                time_ms(torch, lambda: msda.ms_deform_attn_plain(
-                    value, SPARSE_LEVELS, loc, aw), n=10),
-                msda_work(torch, value, SPARSE_LEVELS, loc, aw))
-        enc_label = SPARSE_RUNS[1][0]
-        entry("msda_fwd", "raft_tpu_torch/csrc/msda_fwd.cu",
-              "raft_tpu/ops/msda_pallas.py:95", *msda_times["decoder"], None,
-              shape="decoder: B=8 Lq=100 M=8 D=16 L=6 P=4",
-              ms_encoder=msda_times["encoder"][0],
-              plain_ms_encoder=msda_times["encoder"][1],
-              bound_ms_encoder=bound(*msda_times["encoder"][2])[0],
-              bound_by_encoder=bound(*msda_times["encoder"][2])[1],
-              shape_encoder="encoder: B=4 Lq=6930 M=8 D=8 L=6 P=4",
-              launches_per_forward_encoder=sparse_launches[enc_label][
-                  "msda_fwd"] / SPARSE_TIMED)
-    # msda_bwd at both shapes (its plain version needs autograd, so outside
-    # inference mode)
-    msda_bwd_times = {}
-    for label, (b, lq, d_head) in msda_shapes.items():
-        value, loc, aw = msda_inputs(torch, rng, b, lq, d_head)
-        g = torch.randn(b, lq, 8 * d_head, device="cuda")
-        msda_bwd_times[label] = (
-            time_ms(torch, lambda: msda_cuda.ms_deform_attn_bwd_cuda(
-                value, SPARSE_LEVELS, loc, aw, g)),
-            time_ms(torch, lambda: msda.ms_deform_attn_bwd_plain(
-                value, SPARSE_LEVELS, loc, aw, g), n=10),
-            msda_bwd_work(torch, value, SPARSE_LEVELS, loc, aw))
+    # the MSDA kernels at both shapes, on incoherent and coherent inputs,
+    # each timed input held against the plain versions at every launch; the
+    # rows' ms, plain ms and bound are the incoherent inputs' at the
+    # planned launch as before, their queued device times under ms_q*,
+    # every input and launch under by_input
+    mt, timed_rel = msda_timings(torch, msda, msda_cuda, rng, msda_shapes,
+                                 err)
+    msda_bwd_rel = max(msda_bwd_rel, timed_rel)
+    enc_label = SPARSE_RUNS[1][0]
     enc_train = sparse_train[SPARSE_TRAIN_RUNS[1][0]]
-    entry("msda_bwd", "raft_tpu_torch/csrc/msda_bwd.cu",
-          "raft_tpu/ops/msda_pallas.py:124", *msda_bwd_times["decoder"],
-          None, max_rel_err=msda_bwd_rel,
-          shape="decoder: B=8 Lq=100 M=8 D=16 L=6 P=4",
-          ms_encoder=msda_bwd_times["encoder"][0],
-          plain_ms_encoder=msda_bwd_times["encoder"][1],
-          bound_ms_encoder=bound(*msda_bwd_times["encoder"][2])[0],
-          bound_by_encoder=bound(*msda_bwd_times["encoder"][2])[1],
-          shape_encoder="encoder: B=4 Lq=6930 M=8 D=8 L=6 P=4",
-          launches_per_step_encoder=enc_train[2]["msda_bwd"] / enc_train[3])
+    for kind, name, line, extra in (
+            ("fwd", "msda_fwd", 95, {
+                "launches_per_forward_encoder": sparse_launches[enc_label][
+                    "msda_fwd"] / SPARSE_TIMED}),
+            ("bwd", "msda_bwd", 124, {
+                "max_rel_err": msda_bwd_rel,
+                "launches_per_step_encoder": enc_train[2]["msda_bwd"]
+                / enc_train[3]})):
+        dec, enc = mt[kind]["decoder incoherent"], mt[kind][
+            "encoder incoherent"]
+        coh = mt[kind]["encoder coherent"]
+        entry(name, f"raft_tpu_torch/csrc/{name}.cu",
+              f"raft_tpu/ops/msda_pallas.py:{line}", dec["ms"],
+              dec["plain_ms"], dec["work"], None,
+              shape=f"decoder: {dec['shape']}", ms_q=dec["ms_q"],
+              ms_encoder=enc["ms"], plain_ms_encoder=enc["plain_ms"],
+              bound_ms_encoder=enc["bound_ms"],
+              bound_by_encoder=enc["bound_by"], ms_q_encoder=enc["ms_q"],
+              shape_encoder=f"encoder: {enc['shape']}",
+              ms_q_encoder_coherent=coh["ms_q"],
+              bound_ms_encoder_coherent=coh["bound_ms"],
+              by_input={k: {f: v for f, v in row.items() if f != "work"}
+                        for k, row in mt[kind].items()},
+              **extra)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         tile = (f", f32 SIMT bound {k['bound_ms_f32_simt']:.4f} ms, "
@@ -2049,14 +2191,20 @@ def main():
                   f"{100 * k['shared_share_sparse'][str(c)]:.1f}% of blocks")
         print(f"{k['name']} SASS, tensor-core TF32 MMAs: "
               f"{k['sass_tf32_mma']}")
-    mb = named["msda_bwd"]
-    print(f"msda_bwd at the encoder shape: {mb['ms_encoder']:.4f} ms a "
-          f"launch, bound {mb['bound_ms_encoder']:.4f} ms "
-          f"({mb['bound_by_encoder']}), plain {mb['plain_ms_encoder']:.4f} ms")
-    md = named["msda_fwd"]
-    print(f"msda_fwd at the encoder shape: {md['ms_encoder']:.4f} ms a "
-          f"launch, bound {md['bound_ms_encoder']:.4f} ms "
-          f"({md['bound_by_encoder']}), plain {md['plain_ms_encoder']:.4f} ms")
+    for name in ("msda_fwd", "msda_bwd"):
+        k = named[name]
+        print(f"{name} at the encoder shape: {k['ms_encoder']:.4f} ms a "
+              f"launch, bound {k['bound_ms_encoder']:.4f} ms "
+              f"({k['bound_by_encoder']}), plain {k['plain_ms_encoder']:.4f}"
+              f" ms")
+        for key, row in k["by_input"].items():
+            where = (f"{row['slots']} slots a group; forced: "
+                     + ", ".join(f"{p} {row['ms_q_' + p]:.4f}"
+                                 for p in MSDA_FORCE)
+                     if name == "msda_fwd" else "one path")
+            print(f"{name} {key} ({row['shape']}): queued {row['ms_q']:.4f} "
+                  f"ms a launch ({where}), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})")
     profile_pair(torch, serve, *frames[1])
     pred, frames_b = sparse_preds[SPARSE_RUNS[0][0]]
     sparse_shares = profile_by_name(

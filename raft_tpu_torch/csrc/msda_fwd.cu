@@ -18,136 +18,100 @@
 // (B=8, Lq=100, D=16) moves under 2 MB, so it is bound by the launch. The
 // exact bound comes from each run's inputs in chip_smoke.py.
 //
-// Design (the reference extension's gather scheme,
-// ms_deform_im2col_cuda.cuh:238, not the TPU's hat-weight matmuls, which do
-// O(W) work per sample where a gather needs four corners): G = D/4 lanes
-// serve one (b, q, m) group, each lane 4 channels, so a corner is one
-// 16-byte load a lane and the group's D contiguous floats of a corner are
-// one coalesced read. A block of 256 threads serves 256/G groups. The
-// groups' locations and weights are contiguous in memory; the block reads
-// them once, coalesced, one thread per sample, and turns each sample into
-// its base pixel index and four corner weights (the attention weight
-// folded in, zero for a corner outside the level) in shared memory. The
-// G lanes of a group then read those shared values instead of each
-// deriving them, gather the corners and accumulate in registers. Samples
-// go through shared memory in chunks of 4G per group (1024 a block).
+// Design: a group of `slots` slots of G = D/4 lanes serves one (b, q, m),
+// each lane 4 channels, so a corner is one 16-byte load a lane and the
+// group's D contiguous floats of a corner one coalesced read. The slots take
+// the group's L*P samples in turn (neighbouring slots read neighbouring
+// locations and weights), issue the four corner loads before using them,
+// and are summed by a shuffle tree at the end. Corners are gathered from L2
+// where they fall. The wrapper sets `slots` (msda_cuda.FWD_SLOTS: 4, at most
+// a warp a group), measured at the decoder's and the encoder's shapes on
+// incoherent and coherent samples. A form that staged each level's value
+// slice in shared memory was slower on the encoder's own (coherent) samples
+// (PERF.md section 6).
+//
+// Locations are rounded as the plain version rounds them (msda_tile.cuh,
+// `locate`), so both kernels pick its corners at whole pixels.
 
 #include <cuda_runtime.h>
 
+#include "msda_tile.cuh"
+
 namespace {
 
+using namespace msda_tile;
+
 constexpr int kThreads = 256;
-constexpr int kEntries = 1024;  // samples staged in shared memory a pass
-constexpr int kMaxLevels = 16;
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+__device__ __forceinline__ void fma4(float4& acc, const float c, const float4 v) {
+  acc.x += c * v.x;
+  acc.y += c * v.y;
+  acc.z += c * v.z;
+  acc.w += c * v.w;
+}
 
-// G: lanes per (b, q, m) group, D = 4 G channels.
+// G: lanes a slot, D = 4 G channels; a group of `slots` slots (a power of
+// two, slots * G <= 32) per (b, q, m).
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 msda_fwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, float* __restrict__ out, const Levels lv,
                 const long long groups, const int lq_heads, const int heads,
-                const int spatial, const int levels, const int points) {
-  constexpr int kGroups = kThreads / G;   // groups a block
-  constexpr int kChunk = kEntries / kGroups;  // samples a group a pass
-  __shared__ int s_base[kEntries];
-  __shared__ float4 s_w[kEntries];
-
-  const int lp = levels * points;
-  const long long g0 = (long long)blockIdx.x * kGroups;
-  const int t = threadIdx.x / G;  // this lane's group in the block
-  const int j = threadIdx.x % G;  // its channels: 4j .. 4j + 3
-  const long long g = g0 + t;
-  const int D = 4 * G;
+                const int spatial, const int num_levels, const int points, const int slots) {
+  const int width = slots * G;  // lanes a group, a power of two up to 32
+  const long long g = ((long long)blockIdx.x * kThreads + threadIdx.x) / width;
+  if (g >= groups) return;  // the whole group
+  const int lane = threadIdx.x % width;
+  const int slot = lane / G, j = lane % G;
+  // the group's lanes of the warp, for the shuffles
+  const unsigned mask = width == 32 ? 0xffffffffu
+                                    : ((1u << width) - 1) << (threadIdx.x % 32 - lane);
   const long long b = g / lq_heads;
   const int m = (int)(g % heads);
-  const float4* vb = reinterpret_cast<const float4*>(
-      value + (b * spatial * heads + m) * (long long)D) + j;
   const long long pix_stride = (long long)heads * G;  // float4s a pixel
+  const float4* vb = reinterpret_cast<const float4*>(value) + (b * spatial * heads + m) * G + j;
+  const int lp = num_levels * points;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int c0 = 0; c0 < lp; c0 += kChunk) {
-    const int n = min(kChunk, lp - c0);
-    // Stage: one thread per (group, sample) of this chunk.
-    for (int i = threadIdx.x; i < kGroups * n; i += kThreads) {
-      const int tt = i / n;
-      const int s = c0 + i % n;
-      const long long gg = g0 + tt;
-      int base = 0;
-      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gg < groups) {
-        const int l = s / points;
-        const int h = lv.h[l];
-        const int wd = lv.w[l];
-        const long long k = gg * lp + s;
-        const float2 uv = reinterpret_cast<const float2*>(loc)[k];
-        const float a = aw[k];
-        const float px = uv.x * wd - 0.5f;
-        const float py = uv.y * h - 0.5f;
-        const float fx = floorf(px);
-        const float fy = floorf(py);
-        // a centre this far out has no corner inside (a NaN fails too);
-        // the test also keeps the int conversion defined
-        if (fabsf(fx) < 1.0e8f && fabsf(fy) < 1.0e8f) {
-          const int x0 = (int)fx;
-          const int y0 = (int)fy;
-          const float dx = px - fx;
-          const float dy = py - fy;
-          const bool x0in = x0 >= 0 && x0 < wd;
-          const bool x1in = x0 + 1 >= 0 && x0 + 1 < wd;
-          const bool y0in = y0 >= 0 && y0 < h;
-          const bool y1in = y0 + 1 >= 0 && y0 + 1 < h;
-          w.x = (y0in && x0in) ? a * (1.f - dx) * (1.f - dy) : 0.f;
-          w.y = (y0in && x1in) ? a * dx * (1.f - dy) : 0.f;
-          w.z = (y1in && x0in) ? a * (1.f - dx) * dy : 0.f;
-          w.w = (y1in && x1in) ? a * dx * dy : 0.f;
-          // in range only where a corner is: no overflow
-          if ((x0in || x1in) && (y0in || y1in)) base = lv.start[l] + y0 * wd + x0;
-        }
-        s_base[tt * kChunk + (s - c0)] = base;
-        s_w[tt * kChunk + (s - c0)] = w;
-      }
-    }
-    __syncthreads();
-    if (g < groups) {
-      for (int e = 0; e < n; ++e) {
-        const int base = s_base[t * kChunk + e];
-        const float4 w = s_w[t * kChunk + e];
-        if (w.x == 0.f && w.y == 0.f && w.z == 0.f && w.w == 0.f) continue;
-        const int l = (c0 + e) / points;
-        const int wd = lv.w[l];
-        const float ws[4] = {w.x, w.y, w.z, w.w};
-        const int offs[4] = {base, base + 1, base + wd, base + wd + 1};
+  for (int e = slot; e < lp; e += slots) {
+    const int l = e / points;
+    const int w = lv.w[l];
+    const long long k = g * lp + e;
+    const Sample s = locate(reinterpret_cast<const float2*>(loc)[k], lv.h[l], w);
+    if (!s.mask) continue;
+    const float a = aw[k];
+    const int base = lv.start[l] + s.y0 * w + s.x0;
+    const int offs[4] = {base, base + 1, base + w, base + w + 1};
+    float4 v[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (ws[k] != 0.f) {
-            const float4 v = __ldg(vb + offs[k] * pix_stride);
-            acc.x += ws[k] * v.x;
-            acc.y += ws[k] * v.y;
-            acc.z += ws[k] * v.z;
-            acc.w += ws[k] * v.w;
-          }
-        }
-      }
+    for (int c = 0; c < 4; ++c) {
+      v[c] = (s.mask >> c & 1) ? __ldg(vb + offs[c] * pix_stride)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();  // the next chunk rewrites the staged samples
+    float wk[4];
+    corner_weights(s, wk);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fma4(acc, a * wk[c], v[c]);
   }
-  if (g < groups) reinterpret_cast<float4*>(out)[g * G + j] = acc;
+  for (int off = G; off < width; off <<= 1) {
+    acc.x += __shfl_xor_sync(mask, acc.x, off);
+    acc.y += __shfl_xor_sync(mask, acc.y, off);
+    acc.z += __shfl_xor_sync(mask, acc.z, off);
+    acc.w += __shfl_xor_sync(mask, acc.w, off);
+  }
+  if (slot == 0) reinterpret_cast<float4*>(out)[g * G + j] = acc;
 }
 
 template <int G>
 cudaError_t launch(const float* value, const float* loc, const float* aw, float* out,
-                   const Levels& lv, long long groups, int lq_heads, int heads, int spatial,
-                   int levels, int points, cudaStream_t stream) {
-  constexpr int kGroups = kThreads / G;
-  const dim3 grid((unsigned)((groups + kGroups - 1) / kGroups));
-  msda_fwd_kernel<G><<<grid, kThreads, 0, stream>>>(value, loc, aw, out, lv, groups,
-                                                   lq_heads, heads, spatial, levels, points);
+                   const Levels& lv, int num_levels, int batch, int spatial, int queries,
+                   int heads, int points, int slots, cudaStream_t stream) {
+  if (slots < 1 || slots * G > 32 || (slots & (slots - 1))) return cudaErrorInvalidValue;
+  const long long groups = (long long)batch * queries * heads;
+  const long long blocks = (groups * slots * G + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  msda_fwd_kernel<G><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      value, loc, aw, out, lv, groups, queries * heads, heads, spatial, num_levels, points,
+      slots);
   return cudaGetLastError();
 }
 
@@ -155,32 +119,26 @@ cudaError_t launch(const float* value, const float* loc, const float* aw, float*
 
 // value (B, S, M, D), loc (B, Lq, M, L, P, 2), aw (B, Lq, M, L, P), out
 // (B, Lq, M*D): float32, contiguous, 16-byte aligned. Level l is h[l] x w[l]
-// starting at row start[l] of S; 1 <= L <= 16; D is 4, 8 or 16.
-// Returns a cudaError_t (0 on success); launches on `stream`.
+// starting at row start[l] of S; 1 <= L <= 16; D is 4, 8 or 16; slots (a
+// power of two, slots * D / 4 <= 32) slots of D / 4 lanes serve each
+// (b, q, m). Returns a cudaError_t (0 on success); launches on `stream`.
 extern "C" int raft_msda_fwd(const void* value, const void* loc, const void* aw, void* out,
                              const int* h, const int* w, const int* start, int num_levels,
                              int batch, int spatial, int queries, int heads, int channels,
-                             int points, void* stream) {
+                             int points, int slots, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || batch < 0 || queries < 0 ||
       heads < 1 || points < 1 || spatial < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  Levels lv;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    lv.h[l] = l < num_levels ? h[l] : 0;
-    lv.w[l] = l < num_levels ? w[l] : 0;
-    lv.start[l] = l < num_levels ? start[l] : 0;
-  }
-  const long long groups = (long long)batch * queries * heads;
-  if (groups == 0) return 0;
+  const Levels lv = make_levels(h, w, start, num_levels);
+  if ((long long)batch * queries == 0) return 0;
   const float* v = static_cast<const float*>(value);
   const float* l = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(aw);
   float* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int lq_heads = queries * heads;
-#define MSDA_LAUNCH(G) launch<G>(v, l, a, o, lv, groups, lq_heads, heads, spatial, \
-                                 num_levels, points, s)
+#define MSDA_LAUNCH(G) launch<G>(v, l, a, o, lv, num_levels, batch, spatial, queries, heads, \
+                                 points, slots, s)
   cudaError_t err;
   switch (channels) {
     case 4: err = MSDA_LAUNCH(1); break;

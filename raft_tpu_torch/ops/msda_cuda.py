@@ -10,11 +10,19 @@ take and on a failed launch. ``MSDeformAttnFn`` makes the pair a node of the
 autograd graph, with gradients to the value, the sampling locations and the
 attention weights. The plain versions are ``ops/msda.py``'s
 ``ms_deform_attn_plain`` and ``ms_deform_attn_bwd_plain``.
+
+The forward gathers each sample's corners from L2, a group of
+``fwd_slots`` slots of D/4 lanes per (image, query, head). The backward's
+blocks own their (image, head, level)'s d_value, or bands of its rows
+(``BAND_BYTES``), in shared memory; ``plan`` sets the bands and whether a
+cluster of two blocks takes each, from the shapes and the card's SM count
+(``sm_count``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,11 +33,86 @@ launches = 0          # forward kernel launches (ms_deform_attn_cuda)
 bwd_launches = 0      # backward kernel launches (ms_deform_attn_bwd_cuda)
 MAX_LEVELS = 16
 CHANNELS = (4, 8, 16)     # head widths D the kernel takes
+# The dynamic shared memory a block may hold on an H100 (227 KB less 1 KB of
+# static shared memory; msda_tile.cuh's kMaxSmem).
+SMEM_BYTES = 232448 - 1024
+# Slots of D/4 lanes the forward gives each (image, query, head), at most a
+# warp. Measured on an H100 (scripts/corr_tile_bench.py msda, PERF.md
+# section 6): within 8% of the best of 1-16 slots at the decoder's and the
+# encoder's shapes, on incoherent and coherent samples; one slot took up to
+# 1.7x the time, a warp up to 1.7x.
+FWD_SLOTS = 4
+# The shared memory of one backward block: its band of a level's d_value
+# and two chunks of samples.
+BAND_BYTES = SMEM_BYTES
+BWD_CHUNK = 2048      # csrc/msda_bwd.cu's kChunk: samples a chunk
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
-                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 4
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def _align4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def bwd_block_bytes(npx: int, queries: int, points: int,
+                    channels: int) -> int:
+    """Shared memory of a backward block whose band holds ``npx`` pixels
+    (``csrc/msda_bwd.cu``'s ``layout``): the band's d_value, two buffers of
+    a chunk's cotangent rows, locations and weights, the pixels' counts,
+    and the chunk's touched pixels, slice starts, slots and entries."""
+    qc = max(1, min(queries, BWD_CHUNK // points))
+    ns = qc * points
+    chunk = qc * channels + _align4(2 * ns) + _align4(ns)
+    entries, touched = 4 * ns, min(npx, 4 * ns)
+    return 4 * (npx * channels + 2 * chunk + _align4(npx) + _align4(touched)
+                + _align4(touched // 2 + 1) + 2 * _align4(entries // 2))
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fwd_slots(channels: int) -> int:
+    """The forward's slots of D/4 lanes per (image, query, head)."""
+    return min(FWD_SLOTS, 128 // channels)
+
+
+def plan(spatial_shapes, batch: int, queries: int, heads: int, points: int,
+         channels: int, sms: int) -> dict:
+    """The backward's launch on a card of ``sms`` SMs: ``band_rows`` (the
+    rows of each level a band owns) and ``bwd_split`` (the blocks that take
+    a band's chunks together), with the shared memory a block needs
+    (``bwd_bytes``), as ``csrc/msda_bwd.cu`` computes it."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return dict(_plan(shapes, batch, queries, heads, points, channels, sms,
+                      BAND_BYTES))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shapes, batch, queries, heads, points, channels, sms,
+          band_bytes) -> dict:
+    rows, bwd_bytes = [], 0
+    for h, w in shapes:
+        n = max(h, 1)
+        while n > 1 and bwd_block_bytes(n * w, queries, points,
+                                        channels) > band_bytes:
+            n -= 1
+        rows.append(n)
+        bwd_bytes = max(bwd_bytes, bwd_block_bytes(n * w, queries, points,
+                                                   channels))
+    # A launch with fewer bands than two waves of SMs, each band of 4
+    # chunks or more, splits each band over a cluster of two blocks (at the
+    # encoder shape 0.88x the time of one block a band, four blocks 1.19x;
+    # at 3 chunks two blocks took 1.05x).
+    bands = sum(-(-h // n) for (h, _), n in zip(shapes, rows))
+    chunks = -(-queries // max(1, min(queries, BWD_CHUNK // points)))
+    split = 2 if batch * heads * bands < 2 * sms and chunks >= 4 else 1
+    return {"band_rows": tuple(rows), "bwd_split": split,
+            "bwd_bytes": bwd_bytes}
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights):
@@ -84,7 +167,7 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes,
         err = build.bind("msda_fwd", "raft_msda_fwd", _ARGTYPES)(
             value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), out.data_ptr(), *levels, L, B, S,
-            Lq, M, D, P, stream)
+            Lq, M, D, P, fwd_slots(D), stream)
     if err:
         raise RuntimeError(f"msda_fwd kernel failed: cudaError {err}")
     launches += 1
@@ -98,9 +181,11 @@ def ms_deform_attn_bwd_cuda(value: torch.Tensor, spatial_shapes,
     """Launch ``csrc/msda_bwd.cu``: the gradients of
     ``ms_deform_attn_cuda`` for the cotangent ``grad`` (B, Lq, M*D).
     Operands as for the forward, ``grad`` float32 and contiguous too.
-    Returns ``(d_value (B, S, M, D), d_loc (B, Lq, M, L, P, 2), d_aw
-    (B, Lq, M, L, P))``, float32. ``d_value`` is summed with atomics, so
-    it is not bit-reproducible from run to run."""
+    One row of the widest level must fit a block's shared memory beside a
+    chunk of samples. Returns ``(d_value (B, S, M, D), d_loc (B, Lq, M,
+    L, P, 2), d_aw (B, Lq, M, L, P))``, float32, each written whole by the
+    kernel. ``d_loc`` and ``d_aw`` are bit-reproducible; ``d_value`` is
+    not: the order of its sums comes from shared-memory atomics."""
     global bwd_launches
     levels = _check(value, spatial_shapes, sampling_locations,
                     attention_weights)
@@ -108,16 +193,23 @@ def ms_deform_attn_bwd_cuda(value: torch.Tensor, spatial_shapes,
     _, Lq, _, L, P, _ = sampling_locations.shape
     dev = value.device
     check_operand("grad", grad, (B, Lq, M * D), dev)
-    d_value = torch.zeros_like(value)
+    widest = max(int(w) for _, w in spatial_shapes)
+    if bwd_block_bytes(widest, Lq, P, D) > SMEM_BYTES:
+        raise ValueError(f"a level {widest} pixels wide at D={D}: one row of "
+                         f"its d_value must fit {SMEM_BYTES} bytes of shared "
+                         f"memory")
+    d_value = torch.empty_like(value)
     d_loc = torch.empty_like(sampling_locations)
     d_aw = torch.empty_like(attention_weights)
+    p = plan(spatial_shapes, B, Lq, M, P, D, sm_count(dev))
+    rows = (ctypes.c_int * L)(*p["band_rows"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = build.bind("msda_bwd", "raft_msda_bwd", _BWD_ARGTYPES)(
             value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), grad.data_ptr(), d_value.data_ptr(),
-            d_loc.data_ptr(), d_aw.data_ptr(), *levels, L, B, S, Lq, M, D, P,
-            stream)
+            d_loc.data_ptr(), d_aw.data_ptr(), *levels, rows, L, B, S, Lq, M,
+            D, P, p["bwd_split"], stream)
     if err:
         raise RuntimeError(f"msda_bwd kernel failed: cudaError {err}")
     bwd_launches += 1

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""What holds the port's windowed-correlation kernels back, on one CUDA
-card: their time by variant, budget and input.
+"""What holds the port's windowed-correlation kernels back, and its
+deformable-attention (MSDA) kernels, on one CUDA card: their time by
+variant, budget or path, and input.
 
 For the lookup shapes of the main paths (Sintel, B=1, 55x128, C=256, 4
 levels; the chairs train shape, B=8, 46x62; the sparse family's fork lookup
@@ -27,11 +28,12 @@ kernels with one part of their work changed, each written under
 - ``no_df1_atomics``: the backward's warp path stores its df1 sums in
   place of adding them with atomics (budget 0).
 
-Each time is taken twice: by ``time_ms``, whose events may also hold the
-host's time in the wrapper when the card runs ahead of it (a kernel
-shorter than the wrapper's Python), and by ``queued_ms``, which first
-queues a ``torch.cuda._sleep`` of about 10 ms so that every timed launch
-waits in the stream and its events hold the kernel alone.
+Each time is taken twice: by chip_smoke's ``time_ms``, whose events may
+also hold the host's time in the wrapper when the card runs ahead of it (a
+kernel shorter than the wrapper's Python), and by chip_smoke's
+``queued_ms``, which first queues a ``torch.cuda._sleep`` of about 10 ms
+so that every timed launch waits in the stream and its events hold the
+kernel alone.
 
 The variants that compute the lookup exactly (``tile``, ``warp_smem``,
 ``warp_only``) are held against the plain versions (chip_smoke's ``TOL``
@@ -45,9 +47,33 @@ inputs, the kernels of another tree: the parent commit unpacked with
 ``git archive`` into a git-ignored directory, so that the parent's kernels
 and these are timed in one call.
 
+With the kernel name ``msda`` it times ``msda_fwd`` and ``msda_bwd``
+instead, at chip_smoke's decoder (B=8, Lq=100, D=16) and encoder (B=4,
+Lq=6930, D=8) shapes on its incoherent inputs and at the encoder's on its
+coherent one, in copies under ``build/corr_tile_bench/msda-<variant>/``:
+
+- ``launch``: the kernels as they are, and with the forward's slots a
+  group (``FWD_SLOTS``, default 4) set to 1, 2, 8 and 16 (at most a
+  warp), also on the encoder's coherent input cut to a sixth and a 24th
+  of its queries; the backward's blocks cut to 56 KB of shared memory
+  (``BAND_BYTES``: bands of rows) and its bands never split over a
+  cluster of two blocks (``sm_count`` 1);
+- ``ranked``: the backward puts each pixel's slice of shares in entry
+  order (an insertion sort a pixel) before summing it, so that d_value is
+  bit-reproducible;
+- ``no_sort``: the backward without its counting sort of the d_value
+  shares (no slots, touched pixels or entries, so its shared-memory
+  atomics, scan, list and sums do no work; d_value stays zero);
+- ``no_dloc_daw``: the backward computes and writes no location or weight
+  gradient.
+
+``launch`` and ``ranked`` compute the function exactly; each of their rows
+is held against the plain versions (``TOL``, ``CORR_BWD_REL``) and carries
+the forward's slots and the backward's plan.
+
 Run from the repository root:
 
-    python3 scripts/corr_tile_bench.py [--parent build/parent]
+    python3 scripts/corr_tile_bench.py [corr|msda] [--parent build/parent]
 """
 
 import argparse
@@ -56,7 +82,6 @@ import importlib.util
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 
@@ -101,19 +126,54 @@ VARIANTS = {
                   (0,), True),
     "no_df1_atomics": ([("corr_bwd.cu", _DF1, "out[lane + 32 * v] = acc[v];")], (0,), False),
 }
-# cycles of torch.cuda._sleep ahead of queued_ms's launches: about 10 ms,
-# longer than the host takes to queue 30 launches of a wrapper
-QUEUE_CYCLES = 20_000_000
+_MSDA_SUM = "    // 4. each (touched pixel, 4 channels) sums its slice\n"
+_MSDA_RANK = """    // each slice in entry order
+    for (int k = threadIdx.x; k < nt; k += kThreads) {
+      const int lo = base[k];
+      const int hi = k + 1 < nt ? base[k + 1] : lo + last_count;
+      for (int r = lo + 1; r < hi; ++r) {
+        const unsigned short e = list[r];
+        int t = r;
+        for (; t > lo && list[t - 1] > e; --t) list[t] = list[t - 1];
+        list[t] = e;
+      }
+    }
+    __syncthreads();
+"""
+_MSDA_COUNT = ("          const int k = atomicAdd(cnt + p, 1);\n"
+               "          slot[i * 4 + c] = (unsigned short)k;\n"
+               "          if (k == 0) touched[atomicAdd(&n_touched, 1)] = (unsigned short)p;\n")
+_MSDA_ENTRY = ("          list[cnt[(y - y_lo) * w + s.x0 + (c & 1)] + slot[i * 4 + c]] =\n"
+               "              (unsigned short)(i * 4 + c);\n")
 
 
-def variant_tree(name):
+def _one_sm(device):
+    return 1
+
+
+# variant -> (edits, settings of ops/msda_cuda.py's names ({}: the
+# defaults), exact)
+MSDA_VARIANTS = {
+    "launch": ([], ({}, *({"FWD_SLOTS": n} for n in (1, 2, 8, 16)),
+                    {"BAND_BYTES": 56 * 1024}, {"sm_count": _one_sm}), True),
+    "ranked": ([("msda_bwd.cu", _MSDA_SUM, _MSDA_RANK + _MSDA_SUM)], ({},), True),
+    "no_sort": ([("msda_bwd.cu", _MSDA_COUNT, "          ;\n"),
+                 ("msda_bwd.cu", _MSDA_ENTRY, "          ;\n")],
+                ({},), False),
+    "no_dloc_daw": ([("msda_bwd.cu", "      if (oy / rows == band) {", "      if (false) {")],
+                    ({},), False),
+}
+TABLES = {"corr": VARIANTS, "msda": MSDA_VARIANTS}
+
+
+def variant_tree(kernel, name):
     """A copy of this tree's raft_tpu_torch with variant ``name``'s edits."""
-    root = os.path.join(OUT, name)
+    root = os.path.join(OUT, name if kernel == "corr" else f"{kernel}-{name}")
     pkg = os.path.join(root, "raft_tpu_torch")
     shutil.rmtree(pkg, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, "raft_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for fname, old, new in VARIANTS[name][0]:
+    for fname, old, new in TABLES[kernel][name][0]:
         path = os.path.join(pkg, "csrc", fname)
         text = open(path).read()
         if old not in text:
@@ -145,24 +205,6 @@ def cases(torch, smoke, corr, sampling):
                                                     h, w, c)
         yield (f"fork B={smoke.SPARSE_RUNS[0][1]} {h}x{w} C={c}", "half-pixel centres",
                f1, pyr, centers, False)
-
-
-def queued_ms(torch, fn, n=30):
-    """Median over ``n`` calls of ``fn`` between two CUDA events, queued
-    behind a sleep on the stream, so that the card never waits for the
-    host between them."""
-    for _ in range(3):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_CYCLES)
-    for start, end in ev:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
 def run_variant(name):
@@ -223,9 +265,9 @@ def run_variant(name):
                 worst["bwd"] = max(worst["bwd"], row["bwd_rel"])
             with torch.inference_mode():
                 row["fwd_ms"] = smoke.time_ms(torch, fwd)
-                row["fwd_ms_queued"] = queued_ms(torch, fwd)
+                row["fwd_ms_queued"] = smoke.queued_ms(torch, fwd)
             row["bwd_ms"] = smoke.time_ms(torch, bwd)
-            row["bwd_ms_queued"] = queued_ms(torch, bwd)
+            row["bwd_ms_queued"] = smoke.queued_ms(torch, bwd)
             print(json.dumps(row), flush=True)
     if tiled:
         corr_cuda.TILE_BUDGET = default
@@ -238,8 +280,102 @@ def run_variant(name):
             raise SystemExit(f"corr_tile_bench: {name} disagrees with the plain version")
 
 
+def msda_cases(torch, smoke, fewer=False):
+    """(label, value, loc, aw, cotangent) of every timed MSDA input; with
+    ``fewer`` also the encoder's coherent input cut to a sixth and a 24th
+    of its queries, between the decoder's and the encoder's launch
+    sizes."""
+    rng = np.random.default_rng(0)
+    dec = (smoke.SPARSE_RUNS[0][1], 100, 16)
+    s = sum(h * w for h, w in smoke.SPARSE_LEVELS)
+    enc = (smoke.SPARSE_RUNS[1][1], s, 8)
+    cases = [("decoder", dec, False), ("encoder", enc, False), ("encoder", enc, True)]
+    if fewer:
+        cases += [("fewer", (enc[0], s // n, 8), True) for n in (6, 24)]
+    for label, (b, lq, d), coherent in cases:
+        if coherent:
+            value, loc, aw = smoke.msda_coherent_inputs(torch, rng, b, d)
+            loc, aw = loc[:, :lq].contiguous(), aw[:, :lq].contiguous()
+        else:
+            value, loc, aw = smoke.msda_inputs(torch, rng, b, lq, d)
+        g = torch.randn(b, lq, 8 * d, device="cuda")
+        yield (f"{label} {'coherent' if coherent else 'incoherent'} B={b} Lq={lq} "
+               f"M=8 D={d} L=6 P=4", value, loc, aw, g)
+
+
+def run_msda_variant(name):
+    """Time (and, for an exact variant, check) MSDA variant ``name``, whose
+    tree is on sys.path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("corr_tile_bench: no CUDA device")
+    smoke = load_smoke()
+    from raft_tpu_torch.ops import build, msda, msda_cuda
+
+    _, settings, exact = MSDA_VARIANTS.get(name, ((), ({},), True))
+    planned = hasattr(msda_cuda, "plan")  # the parent commit's kernels have no plan
+    print(smoke.card_line())
+    paths = build.build(("msda_fwd", "msda_bwd"))
+    for lib, path in paths.items():
+        with open(path + ".log") as f:
+            print(f"{lib}: " + " | ".join(ln.strip() for ln in f
+                                         if "registers" in ln or "spill" in ln))
+    defaults = {k: getattr(msda_cuda, k) for k in
+                ("FWD_SLOTS", "BAND_BYTES", "sm_count") if planned}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    levels = smoke.SPARSE_LEVELS
+    for label, value, loc, aw, g in msda_cases(torch, smoke, fewer=name == "launch"):
+        fwd = functools.partial(msda_cuda.ms_deform_attn_cuda, value, levels, loc, aw)
+        bwd = functools.partial(msda_cuda.ms_deform_attn_bwd_cuda, value, levels, loc,
+                                aw, g)
+        if exact:
+            with torch.inference_mode():
+                want = msda.ms_deform_attn_plain(value, levels, loc, aw)
+            want_d = msda.ms_deform_attn_bwd_plain(value, levels, loc, aw, g)
+        for setting in settings if planned else ({},):
+            for k, v in {**defaults, **setting}.items():
+                setattr(msda_cuda, k, v)
+            row = {"variant": name, "input": label,
+                   "setting": {k: v if isinstance(v, (int, float)) else v.__name__
+                               for k, v in setting.items()}}
+            if planned:
+                row["fwd_slots"] = msda_cuda.fwd_slots(value.shape[-1])
+                row["plan"] = msda_cuda.plan(levels, value.shape[0], loc.shape[1], 8, 4,
+                                             value.shape[-1],
+                                             msda_cuda.sm_count(value.device))
+            with torch.inference_mode():
+                got = fwd()
+            got_d = bwd()
+            torch.cuda.synchronize()
+            if exact:
+                row["fwd_err"] = float((got - want).abs().max())
+                row["bwd_rel"] = max(float((a - b).abs().max()) / float(b.abs().max())
+                                     for a, b in zip(got_d, want_d))
+                worst["fwd"] = max(worst["fwd"], row["fwd_err"])
+                worst["bwd"] = max(worst["bwd"], row["bwd_rel"])
+            with torch.inference_mode():
+                row["fwd_ms"] = smoke.time_ms(torch, fwd)
+                row["fwd_ms_queued"] = smoke.queued_ms(torch, fwd)
+            row["bwd_ms"] = smoke.time_ms(torch, bwd)
+            row["bwd_ms_queued"] = smoke.queued_ms(torch, bwd)
+            print(json.dumps(row), flush=True)
+    for k, v in defaults.items():
+        setattr(msda_cuda, k, v)
+    print(smoke.card_line())
+    if exact:
+        print(json.dumps({"variant": name, "worst_fwd_err": worst["fwd"],
+                          "worst_bwd_rel": worst["bwd"], "tol": smoke.TOL,
+                          "bwd_rel_bar": smoke.CORR_BWD_REL}))
+        if not (worst["fwd"] <= smoke.TOL and worst["bwd"] <= smoke.CORR_BWD_REL):
+            raise SystemExit(f"corr_tile_bench: msda {name} disagrees with the plain "
+                             f"version")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", nargs="?", choices=tuple(TABLES), default="corr",
+                    help="the kernels to time: the corr pair (default) or the MSDA pair")
     ap.add_argument("--parent", metavar="DIR",
                     help="the parent commit's tree (git archive), whose kernels are "
                          "timed and checked first, on the same inputs")
@@ -247,14 +383,15 @@ def main():
     args = ap.parse_args()
     if args.child:
         sys.path.insert(0, os.path.abspath(args.child[1]))
-        run_variant(args.child[0])
+        (run_variant if args.kernel == "corr" else run_msda_variant)(args.child[0])
         return
     runs = [("parent", args.parent)] if args.parent else []
-    runs += [(name, variant_tree(name)) for name in VARIANTS]
+    runs += [(name, variant_tree(args.kernel, name)) for name in TABLES[args.kernel]]
     failed = []
     for name, tree in runs:
         print(f"variant {name}", flush=True)
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name, tree],
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), args.kernel,
+                              "--child", name, tree],
                              text=True, capture_output=True)
         print(run.stdout + run.stderr, flush=True)
         if run.returncode:

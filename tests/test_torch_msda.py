@@ -330,3 +330,173 @@ def test_backward_kernel_at_whole_pixels(cuda):
     for name, g, w in zip(("value", "locations", "weights"), got, want):
         err = float((g - w).abs().max() / w.abs().max())
         assert err <= 1e-4, (name, err)
+
+
+# The forward's slots a group forced (msda_cuda.FWD_SLOTS, at most a warp):
+# one slot of D/4 lanes per (image, query, head), and a warp.
+FORCE = {"one_slot": 1, "warp": 32}
+# (B, Lq, D, levels): the decoder, the dense encoder, Lq off every chunk,
+# and a Sintel-size level (55x128) too large for shared memory at D=16.
+PATH_SHAPES = {
+    "decoder": (8, 100, 16, LEVELS_352x480),
+    "encoder": (4, 6930, 8, LEVELS_352x480),
+    "ragged-D4": (2, 1037, 4, LEVELS_352x480),
+    "large-level-D16": (2, 2000, 16, [(55, 128), (28, 64)]),
+}
+
+
+def _card_case(cuda, shape, seed, spread=0.1):
+    b, lq, d, levels = PATH_SHAPES[shape]
+    value, loc, aw = (_t(a).to(cuda) for a in _inputs(
+        d, levels, b=b, m=8, lq=lq, p=4, seed=seed, spread=spread))
+    return value, loc, aw, levels
+
+
+def _bwd_errors(got, want):
+    return {name: float((g - w).abs().max() / w.abs().max())
+            for name, g, w in zip(("value", "locations", "weights"), got,
+                                  want)}
+
+
+def _bands(levels, rows):
+    return sum(-(-h // r) for (h, _), r in zip(levels, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PATH_SHAPES))
+@pytest.mark.parametrize("path", list(FORCE))
+def test_forced_path_matches_plain_on_card(cuda, monkeypatch, path, shape):
+    """The forward with one slot a group and with a warp at each shape
+    (1e-4), and the backward's three gradients (1e-4 of the largest plain
+    one), against the plain versions; the large level is cut into bands
+    in the backward."""
+    monkeypatch.setattr(msda_cuda, "FWD_SLOTS", FORCE[path])
+    value, loc, aw, levels = _card_case(cuda, shape, seed=11)
+    b, lq, d = value.shape[0], loc.shape[1], value.shape[-1]
+    cot = torch.randn(b, lq, 8 * d, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2))
+    got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, aw)
+    got_d = msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw, cot)
+    assert msda_cuda.fwd_slots(d) == (1 if path == "one_slot" else 128 // d)
+    rows = msda_cuda.plan(levels, b, lq, 8, 4, d,
+                          msda_cuda.sm_count(cuda))["band_rows"]
+    assert (shape == "large-level-D16") == (_bands(levels, rows) > len(levels))
+    want = msda.ms_deform_attn_plain(value, levels, loc, aw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    want_d = msda.ms_deform_attn_bwd_plain(value, levels, loc, aw, cot)
+    errs = _bwd_errors(got_d, want_d)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ragged-D4", "encoder"])
+def test_backward_bands_of_one_row_on_card(cuda, monkeypatch, shape):
+    """Bands of a single row (BAND_BYTES cut to one row of the widest level
+    beside its chunks of samples): the samples that straddle two bands add
+    to both, their owner (the band of the top row) writes d_aw and d_loc,
+    and the gradients still match the plain version."""
+    value, loc, aw, levels = _card_case(cuda, shape, seed=12, spread=0.2)
+    b, lq, d = value.shape[0], loc.shape[1], value.shape[-1]
+    monkeypatch.setattr(msda_cuda, "BAND_BYTES", msda_cuda.bwd_block_bytes(
+        max(w for _, w in levels), lq, 4, d))
+    rows = msda_cuda.plan(levels, b, lq, 8, 4, d,
+                          msda_cuda.sm_count(cuda))["band_rows"]
+    assert rows[0] == 1, rows
+    cot = torch.randn(b, lq, 8 * d, device=cuda)
+    got = msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw, cot)
+    errs = _bwd_errors(got, msda.ms_deform_attn_bwd_plain(value, levels, loc,
+                                                          aw, cot))
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["decoder", "encoder"])
+@pytest.mark.parametrize("path", list(FORCE))
+def test_zero_weights_far_samples_and_whole_pixels_on_card(cuda, monkeypatch,
+                                                           path, shape):
+    """At each forced launch of the forward, and in the backward: samples with a
+    zero weight add nothing and get no location gradient; samples far
+    outside every level (and a NaN one) get zero gradients and no NaN;
+    whole-pixel locations pick the plain version's corners (both kernels
+    round ``u * W - 0.5`` as it does)."""
+    monkeypatch.setattr(msda_cuda, "FWD_SLOTS", FORCE[path])
+    value, loc, aw, levels = _card_case(cuda, shape, seed=13)
+    b, lq, d = value.shape[0], loc.shape[1], value.shape[-1]
+    gen = torch.Generator(cuda).manual_seed(3)
+    third = lq // 3
+    for lvl, (h, w) in enumerate(levels):
+        for axis, n in ((0, w), (1, h)):
+            pix = torch.randint(0, n, loc[:, third:, :, lvl, :, axis].shape,
+                                generator=gen, device=cuda)
+            loc[:, third:, :, lvl, :, axis] = (pix + 0.5) / n
+    aw[:, :10] = 0.0
+    loc[:, 10:20] = 40.0
+    loc[:, 20, 0, 0, 0, 0] = float("nan")
+    cot = torch.randn(b, lq, 8 * d, device=cuda, generator=gen)
+    got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, aw)
+    d_value, d_loc, d_aw = msda_cuda.ms_deform_attn_bwd_cuda(
+        value, levels, loc, aw, cot)
+    for g in (got, d_value, d_loc, d_aw):
+        assert torch.isfinite(g).all()
+    assert not d_loc[:, :10].any()
+    assert not d_loc[:, 10:20].any() and not d_aw[:, 10:20].any()
+    assert not d_loc[:, 20, 0, 0, 0].any() and d_aw[:, 20, 0, 0, 0].eq(0).all()
+    plain_loc = loc.clone()
+    plain_loc[:, 20, 0, 0, 0, 0] = 40.0   # the kernels' NaN: no corner
+    want = msda.ms_deform_attn_plain(value, levels, plain_loc, aw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    errs = _bwd_errors((d_value, d_loc, d_aw), msda.ms_deform_attn_bwd_plain(
+        value, levels, plain_loc, aw, cot))
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["decoder", "encoder"])
+def test_backward_needs_no_zero_fill_on_card(cuda, shape):
+    """The backward writes every element of its outputs, which the wrapper
+    allocates with ``torch.empty``: memory left full of NaN by a freed
+    tensor of the same size does not show through."""
+    value, loc, aw, levels = _card_case(cuda, shape, seed=14)
+    cot = torch.randn(value.shape[0], loc.shape[1], 8 * value.shape[-1],
+                      device=cuda)
+    poison = [torch.full_like(t, float("nan")) for t in (value, loc, aw)]
+    del poison
+    got = msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw, cot)
+    for g in got:
+        assert torch.isfinite(g).all()
+    errs = _bwd_errors(got, msda.ms_deform_attn_bwd_plain(value, levels, loc,
+                                                          aw, cot))
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["decoder", "encoder", "large-level-D16"])
+def test_location_and_weight_gradients_are_bit_reproducible(cuda, shape):
+    """d_loc and d_aw are written once by their owner block, with no
+    atomics: three runs give the same bits. (d_value's shares are summed in
+    an order that shared-memory atomics set.)"""
+    value, loc, aw, levels = _card_case(cuda, shape, seed=15)
+    cot = torch.randn(value.shape[0], loc.shape[1], 8 * value.shape[-1],
+                      device=cuda)
+    first = msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw, cot)
+    for _ in range(2):
+        again = msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw, cot)
+        assert torch.equal(first[1], again[1])
+        assert torch.equal(first[2], again[2])
+
+
+@pytest.mark.cuda
+def test_forward_takes_a_level_too_wide_for_the_backward(cuda):
+    """The backward's one-row band must fit shared memory, the forward has
+    no such limit: a level 4000 pixels wide at D=16 runs forward within
+    1e-4 of the plain version, and the backward refuses it."""
+    levels = [(2, 4000), (1, 1000)]
+    assert msda_cuda.bwd_block_bytes(4000, 100, 4, 16) > msda_cuda.SMEM_BYTES
+    value, loc, aw = (_t(a).to(cuda) for a in _inputs(
+        16, levels, b=1, m=8, lq=100, p=4, seed=16, spread=0.1))
+    got = msda_cuda.ms_deform_attn_cuda(value, levels, loc, aw)
+    want = msda.ms_deform_attn_plain(value, levels, loc, aw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="pixels wide"):
+        msda_cuda.ms_deform_attn_bwd_cuda(value, levels, loc, aw,
+                                          torch.randn_like(got))
