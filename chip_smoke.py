@@ -16,7 +16,23 @@ dense encoder's shapes), checks RAFT-large against the committed goldens
 through three routes (on-demand correlation with the step kernel, with the
 motion and GRU kernels, and the all-pairs engine), serves five Sintel-size
 pairs (436x1024, iters=32) on the default path and two on the
-``update_impl="chain"`` path through the port's ``FlowPredictor``, serves
+``update_impl="chain"`` path through the port's ``FlowPredictor``, checks
+RAFT-small against its goldens through the corr kernel at radius 3 (corr_fwd
+and corr_bwd are first held against their plain versions at r=3, C=128 on
+both forced paths), serves it five Sintel-size pairs and times its lookup
+(r=3, C=128, 55x128) on coherent and incoherent flows, runs RAFT's serving
+entry points on RAFT-large at the Sintel shape (early exit at B=2 at
+bench.py's (0.1, 2) and at a tol where the two samples exit at different
+iterations, ``iters_used`` against the plain run's update norms and each
+sample against the plain run to its ``iters_used``; a stream of one cold
+pair and four warm frames through ``encode_dispatch`` and
+``refine_dispatch``, held against the pair call with the same
+``flow_init``, one warm frame profiled; a 4-slot step-granular table with
+requests at iters 12 and 32 admitted at different chunks, each against
+``dispatch_batch(iters=k)``; in the early-exit and step phases corr_fwd
+and update_step at both depths held against their plain versions on the
+phase's own state at B=2 and B=4), printing each of these phases' wall
+seconds, serves
 SparseRAFT at full OursConfig widths through ``load_predictor("random",
 model_family="sparse")`` (352x480, B=8 at the defaults and B=4 with
 ``encoder_iterations=2``), holds those forwards against the plain route
@@ -35,14 +51,14 @@ beside it; their SASS is checked for tensor-core TF32 MMAs after the
 build), holds the corr kernels against their plain versions on coherent
 and incoherent flows with each of their two paths forced (the shared query
 tile and the per-query warp path), times them on both kinds of flow at the
-Sintel and chairs shapes and prints the share of their (tile, level)
+Sintel and chairs shapes (also queued behind a sleep, ``ms_q``) and prints the share of their (tile, level)
 blocks on the shared path there and in the serve and train phases, holds
 the MSDA kernels against their plain versions on the decoder's and the
 encoder's incoherent inputs and on the encoder's coherent one (its
 reference points and the sampling heads' initial offsets) at the
 forward's default slots a group and with its groups forced to one slot
 and to a warp, times them there queued behind a sleep (device time,
-``ms_q*``), profiles one Sintel pair,
+``ms_q*``), profiles one Sintel pair (RAFT-large and RAFT-small),
 one sparse forward, one RAFT and one sparse train step, and prints one
 JSON line of kernel numbers. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
@@ -510,20 +526,20 @@ def lookup_cases(feat):
 
 
 def check_corr_paths(torch, corr_cuda, corr, sampling, rng, radius, feat,
-                     err):
+                     err, c=256, cases=None):
     """corr_fwd and corr_bwd against their plain versions at the golden,
-    Sintel and chairs lookup shapes (lookup_cases), on coherent and
-    incoherent flows, with each path forced (budget 0: the warp path on
-    every block with a non-empty box; FORCE_SHARED: the shared path on
-    every block). Updates ``err``; returns the worst corr_bwd error
-    relative to the largest plain gradient."""
+    Sintel and chairs lookup shapes (lookup_cases, or ``cases``), C=``c``,
+    on coherent and incoherent flows, with each path forced (budget 0: the
+    warp path on every block with a non-empty box; FORCE_SHARED: the
+    shared path on every block). Updates ``err``; returns the worst
+    corr_bwd error relative to the largest plain gradient."""
     worst_rel = 0.0
     default = corr_cuda.TILE_BUDGET
     try:
-        for label, b, h, w, flows in lookup_cases(feat):
+        for label, b, h, w, flows in cases or lookup_cases(feat):
             for flow, max_px in flows.items():
                 f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h,
-                                              w, flow=flow, b=b,
+                                              w, c=c, flow=flow, b=b,
                                               max_px=max_px)
                 g = torch.randn(b, h, w, len(pyr) * (2 * radius + 1) ** 2,
                                 device="cuda")
@@ -536,8 +552,8 @@ def check_corr_paths(torch, corr_cuda, corr, sampling, rng, radius, feat,
                     corr_cuda.TILE_BUDGET = budget
                     rel, counts = corr_against_plain(
                         torch, corr_cuda, f1, pyr, coords, g, radius, want,
-                        want_d, f"{label} B={b} {h}x{w} {flow}, {path} path "
-                        f"forced", err)
+                        want_d, f"{label} B={b} {h}x{w} C={c} r={radius} "
+                        f"{flow}, {path} path forced", err)
                     worst_rel = max(worst_rel, rel)
                     forced = {"warp": 1, "shared": 0}[path]
                     if not all(counts[k][forced] > counts[k][1 - forced]
@@ -548,24 +564,26 @@ def check_corr_paths(torch, corr_cuda, corr, sampling, rng, radius, feat,
     return worst_rel
 
 
-def corr_timings(torch, corr_cuda, corr, sampling, rng, radius, feat, err):
+def corr_timings(torch, corr_cuda, corr, sampling, rng, radius, feat, err,
+                 c=256, cases=None):
     """corr_fwd and corr_bwd at the Sintel (B=1, 55x128) and chairs (B=8,
-    46x62) lookup shapes on coherent and incoherent flows (CORR_FLOWS),
-    C=256, 4 levels, at the default budget: each timed input first held
+    46x62) lookup shapes (or ``cases``, as lookup_cases gives them) on
+    coherent and incoherent flows (CORR_FLOWS), C=``c``, 4 levels, at the
+    default budget: each timed input first held
     against the plain version (corr_against_plain, which updates ``err``),
-    then ms a launch, the bounds on the work these inputs need (3xTF32 and
+    then ms a launch (time_ms, and queued_ms under ms_q), the bounds on the work these inputs need (3xTF32 and
     f32 SIMT), and the share of (tile, level) blocks on the shared path;
     at the Sintel shape also the plain version's ms and the work. Returns
     ({"fwd": {"<shape> <flow>": {...}}, "bwd": {...}}, the worst corr_bwd
     error relative to the largest plain gradient)."""
     out = {"fwd": {}, "bwd": {}}
     worst_rel = 0.0
-    for shape, b, h, w, flows in lookup_cases(feat):
+    for shape, b, h, w, flows in cases or lookup_cases(feat):
         if shape == "golden":
             continue
         for flow, max_px in flows.items():
             f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w,
-                                          flow=flow, b=b, max_px=max_px)
+                                          c=c, flow=flow, b=b, max_px=max_px)
             g = torch.randn(b, h, w, len(pyr) * (2 * radius + 1) ** 2,
                             device="cuda")
             with torch.inference_mode():
@@ -575,7 +593,8 @@ def corr_timings(torch, corr_cuda, corr, sampling, rng, radius, feat, err):
                 f1, pyr, coords, g, radius)
             rel, counts = corr_against_plain(
                 torch, corr_cuda, f1, pyr, coords, g, radius, want, want_d,
-                f"{shape} B={b} {h}x{w} {flow}, timed input", err)
+                f"{shape} B={b} {h}x{w} C={c} r={radius} {flow}, timed "
+                f"input", err)
             worst_rel = max(worst_rel, rel)
             runs = {"fwd": (lambda: corr_cuda.windowed_correlation_cuda(
                                 f1, pyr, coords, radius),
@@ -589,10 +608,11 @@ def corr_timings(torch, corr_cuda, corr, sampling, rng, radius, feat, err):
                             corr_bwd_work(torch, f1, pyr, coords, radius))}
             for kind, (run, plain, work) in runs.items():
                 row = {"ms": time_ms(torch, run),
+                       "ms_q": queued_ms(torch, run),
                        "bound_ms": bound(*work, peak=TF32X3_FLOPS)[0],
                        "bound_ms_f32_simt": bound(*work)[0],
                        "shared_share": shared_share(counts[kind]),
-                       "shape": f"B={b} {h}x{w} C=256 L=4 r={radius}, "
+                       "shape": f"B={b} {h}x{w} C={c} L=4 r={radius}, "
                                 f"flows up to {max_px:g} feature px"}
                 if shape == "sintel":
                     row["plain_ms"] = time_ms(torch, plain, n=10)
@@ -633,9 +653,12 @@ def check_launches(launches, pairs, want_per_pair, unit="pair"):
             fail(f"{name} launched {n} times, expected {want}")
 
 
-def profile_pair(torch, predictor, im1, im2, top: int = 10):
+def profile_pair(torch, predictor, im1, im2, top: int = 10,
+                 label="profile", per_iteration="update_step_kernel"):
     """One pair under torch.profiler: device time by kernel name and the
-    share of the (profiled, so inflated) wall time the device was busy."""
+    share of the (profiled, so inflated) wall time the device was busy.
+    ``per_iteration``: the kernel that must launch once a refine iteration
+    (RAFT-small has no step kernel: its lookup)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -652,22 +675,22 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10):
         by_name[e.name][1] += 1
     device_ms = sum(t for t, _ in by_name.values())
     if not device_ms:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"{label}: the profiler recorded no device time (not "
+              f"measured)")
         return
     busy = busy_ms(events)
-    print_overlaps("profile", events, device_ms, busy)
+    print_overlaps(label, events, device_ms, busy)
     steps = sum(n for name, (_, n) in by_name.items()
-                if "update_step_kernel" in name)
+                if per_iteration in name)
     if steps != SINTEL_ITERS:
-        fail(f"the profiled pair launched the step kernel {steps} times, "
+        fail(f"the profiled pair launched {per_iteration} {steps} times, "
              f"expected {SINTEL_ITERS}")
     cudnn_convs = sum(n for name, (_, n) in by_name.items()
                       if "fprop" in name)
-    print(f"profile: update_step_kernel launched {steps} times; "
-          f"{cudnn_convs} cuDNN convolution launches (the encoders and the "
-          f"final iteration's heads); "
+    print(f"{label}: {per_iteration} launched {steps} times; "
+          f"{cudnn_convs} cuDNN convolution launches; "
           f"{sum(n for _, n in by_name.values())} device launches in all")
-    print(f"profile: one Sintel pair, device busy {busy:.2f} ms of "
+    print(f"{label}: one Sintel pair, device busy {busy:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler "
           f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
           f"{len(by_name)} kernel names")
@@ -1447,27 +1470,30 @@ def sparse_against_plain(torch, pkg, predictor, frames, flow_kernel, label):
     return None if got <= limit else f"sparse [{label}] kernel vs plain"
 
 
-# Categories of a sparse forward's or train step's device time by kernel
-# name, in order of precedence (profile_by_name).
+# Categories of a sparse forward's or train step's (or a stream frame's)
+# device time by kernel name, in order of precedence (profile_by_name).
 SPARSE_SPLIT = (
     ("msda_fwd", ("msda_fwd_kernel",)),
     ("msda_bwd", ("msda_bwd_kernel",)),
     ("corr_fwd", ("corr_fwd_kernel",)),
     ("corr_bwd", ("corr_bwd_kernel",)),
+    ("update_step", ("update_step_kernel",)),
     ("batch, group and layer norms", ("norm", "bn_fw", "bn_bw")),
     ("cuDNN convolutions (implicit GEMM and FFT)",
      ("fprop", "dgrad", "wgrad", "fft", "pointwise_mult_and_sum_complex",
       "convolve", "cudnn", "winograd")),
-    ("host-to-device copies", ("memcpy htod",)))
+    ("host-to-device copies", ("memcpy htod",)),
+    ("device-to-host copies", ("memcpy dtoh",)))
 SPARSE_KERNELS = ("msda_fwd_kernel", "corr_fwd_kernel", "msda_bwd_kernel",
                   "corr_bwd_kernel")
 
 
-def profile_by_name(torch, run, label, what, top: int = 10):
+def profile_by_name(torch, run, label, what, top: int = 10,
+                    kernels=SPARSE_KERNELS):
     """``run()`` under torch.profiler: device busy share of the (profiled,
-    so inflated) wall time, the shares of the device time of the corr and
-    MSDA kernels, the top device operations by time and the split by
-    SPARSE_SPLIT. Returns the kernels' shares."""
+    so inflated) wall time, the shares of the device time of ``kernels``
+    (the corr and MSDA kernels), the top device operations by time and the
+    split by SPARSE_SPLIT. Returns the kernels' shares."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1491,7 +1517,7 @@ def profile_by_name(torch, run, label, what, top: int = 10):
     busy = busy_ms(events)
     print_overlaps(label, events, device_ms, busy)
     shares = {}
-    for kernel in SPARSE_KERNELS:
+    for kernel in kernels:
         ms = sum(t for name, (t, _) in by_name.items() if kernel in name)
         n = sum(c for name, (_, c) in by_name.items() if kernel in name)
         shares[kernel] = ms / device_ms
@@ -1613,6 +1639,351 @@ def sparse_corr_times(torch, corr_cuda, rng, sparse_corr, radius, err,
     return out
 
 
+# -- RAFT-small and RAFT's serving entry points ------------------------------
+SMALL_WEIGHTS = os.path.join(REPO, "assets", "golden", "weights_small.npz")
+SMALL_C = 128                 # RAFT-small's fnet width, its lookup's C
+EARLY_EXIT = (0.1, 2)         # bench.py:552-553's defaults
+# The golden weights are made from a seed, not trained: the refine does
+# not converge, and each sample's mean update norm stays near 0.04 px an
+# iteration (0.043-0.045 for the frame with itself, 0.041-0.043 for the
+# moved one after the first two iterations, at the Sintel shape). At
+# EARLY_EXIT both exit at the earliest (iters_used 3); EE_SPLIT lies between
+# the two, so the moved pair exits while the other keeps updating.
+EE_SPLIT = (0.042, 2)
+EE_SEED = 5
+EE_SHIFTS = ((0, 0), (24, -40))   # a frame with itself; a 3 x 5 feature px move
+STREAM_WARM_FRAMES, STREAM_WARM_ITERS = 4, 6    # bench.py:1410
+STREAM_PX = 1e-3              # refine from encoded maps vs the pair call
+STEP_SLOTS, STEP_CHUNK = 4, 4
+# (name, admitted before chunk, slot, iters) of the step-granular phase
+STEP_REQUESTS = (("a", 0, 0, 12), ("b", 2, 2, 32))
+
+
+def phase_seconds(name, t0):
+    print(f"phase [{name}]: {time.perf_counter() - t0:.1f} s wall")
+
+
+def max_diff(pairs):
+    """The largest max|a - b| over (a, b) pairs of arrays or tensors."""
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+               for a, b in pairs)
+
+
+def small_goldens(torch, pkg, counters):
+    """RAFT-small's goldens through the corr kernel at r=3 (corr_impl
+    auto), to tests/test_golden.py's bars; corr_fwd once a refine
+    iteration."""
+    pred = pkg.load_predictor(SMALL_WEIGHTS, small=True, iters=12)
+    if not pred.alternate_corr:
+        fail("corr_impl='auto' did not pick the kernel engine for "
+             "RAFT-small on the card")
+    with open(os.path.join(REPO, "assets", "golden", "manifest.json")) as f:
+        pairs = json.load(f)["small"]["pairs"]
+    gt_mean = float(np.mean([p["epe_vs_gt"] for p in pairs]))
+    reset_counts(counters)
+    res = pkg.validate_golden_small(pred)
+    launches = read_counts(counters)
+    print(f"golden small [corr kernel r=3, cuDNN update block]: parity EPE "
+          f"{res['golden_small_parity_epe']:.3e} (bar "
+          f"{GOLDEN_PARITY_BAR:g}), GT EPE {res['golden_small_gt_epe']:.4f} "
+          f"(manifest {gt_mean:.4f})")
+    if not res["golden_small_parity_epe"] < GOLDEN_PARITY_BAR:
+        fail("RAFT-small golden parity")
+    if not abs(res["golden_small_gt_epe"] - gt_mean) < GOLDEN_GT_BAR:
+        fail("RAFT-small golden GT EPE")
+    check_launches(launches, len(pairs), {"corr_fwd": 12})
+
+
+def exit_iters(norms, tol, patience):
+    """Each sample's iters_used by the early exit's rule, from its update
+    norms (B, iters - 1) of a plain run: consec resets when a norm is not
+    below ``tol``, used ticks while the sample is not done, done once
+    consec reaches ``patience``; the final iteration adds one."""
+    used = []
+    for row in norms:
+        consec, done, n = 0, False, 0
+        for v in row:
+            if done:
+                break
+            consec = consec + 1 if v < tol else 0
+            n += 1
+            done = consec >= patience
+        used.append(n + 1)
+    return used
+
+
+def iteration_against_plain(torch, pkg, model, carry, what, err):
+    """One refine iteration's kernels on a serving phase's own state at its
+    batch (``carry``, a refine_init carry on the on-demand engine):
+    corr_fwd at the carry's coords1 against its plain version, then
+    update_step at both depths on that lookup against fused_step_plain,
+    each within TOL times max(1, max|plain|): a state's correlations reach
+    about 1e3 (the step table's empty slots hold zero frames), where
+    float32 spaces its values 1.2e-4 apart. Updates ``err``. Its launches
+    are comparisons, made outside the phase's counted run."""
+    f1, pyr = carry["corr"]
+    radius = model.config.radius
+    block = model.update_block
+    convs = (block.encoder.convs(), block.gru.convs(),
+             block.flow_head.convs())
+    packed = (block.encoder.packed_weights(), block.gru.packed_weights(),
+              block.flow_head.packed_weights())
+    net, inp = carry["net"], carry["inp"]
+    coords = carry["coords1"].contiguous()
+    flow = (carry["coords1"] - carry["coords0"]).contiguous()
+    with torch.inference_mode():
+        cor = pkg.corr_cuda.windowed_correlation_cuda(f1, pyr, coords,
+                                                      radius)
+        checks = [("corr_fwd", "", cor,
+                   pkg.corr_cuda.windowed_correlation_fused_plain(
+                       f1, pyr, coords, radius))]
+        for depth, depth_convs, depth_packed in (
+                ("mg", convs[:2] + (None,), packed[:2] + (None,)),
+                ("mgf", convs, packed)):
+            got = pkg.step_cuda.fused_step_cuda(net, inp, cor, flow,
+                                                depth_packed)
+            want = pkg.step_cuda.fused_step_plain(net, inp, cor, flow,
+                                                  depth_convs)
+            if depth == "mg":
+                got, want = (got,), (want,)
+            for i, (a, b) in enumerate(zip(got, want)):
+                checks.append(("update_step",
+                               f" '{depth}' {('h2', 'delta')[i]}", a, b))
+        torch.cuda.synchronize()
+    for name, part, a, b in checks:
+        d = float((a - b).abs().max())
+        top = float(b.abs().max())
+        bar = TOL * max(1.0, top)
+        err[name] = max(err[name], d)
+        print(f"{name}{part} on the {what} state (B={net.shape[0]} "
+              f"{net.shape[1]}x{net.shape[2]}): max|kernel - plain| = "
+              f"{d:.3e}, max|plain| {top:.3g} (bar {bar:.3g})")
+        if not d <= bar:
+            fail(f"{name}{part} disagrees with its plain version on the "
+                 f"{what} state: {d:.3e}")
+
+
+def ee_frames(padder):
+    """The early-exit phase's batch, from EE_SEED: one frame paired with
+    its roll by each of EE_SHIFTS, padded. Returns (images1, images2)."""
+    rng = np.random.default_rng(EE_SEED)
+    base = rng.uniform(0, 255, (*SINTEL_HW, 3)).astype(np.float32)
+    pairs = [padder.pad(base, np.roll(base, s, axis=(0, 1)))
+             for s in EE_SHIFTS]
+    return np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+
+
+def early_exit_phase(torch, pkg, model, padder, counters, err):
+    """RAFT-large, B=len(EE_SHIFTS) at the Sintel shape, iters=32, early
+    exit at EARLY_EXIT and at EE_SPLIT through dispatch_batch(iters=).
+    First each sample's update norms over a plain run of the same batch
+    (the step entry points, one iteration a chunk) give its expected
+    iters_used (exit_iters); each run's iters_used must equal them, and at
+    EE_SPLIT the samples must exit at different iterations. Each sample's
+    flow is held against the plain run to its iters_used, and the
+    iteration's kernels against their plain versions on this batch's
+    state. Returns the launches of the EARLY_EXIT run."""
+    im1, im2 = ee_frames(padder)
+    plain = pkg.FlowPredictor(model, iters=SINTEL_ITERS)
+    carry = plain.step_carry_dispatch(im1, im2)
+    budget = np.full(len(im1), SINTEL_ITERS, np.int32)
+    norms = []
+    with torch.inference_mode():
+        for _ in range(SINTEL_ITERS - 1):
+            prev = carry["coords1"]
+            carry, _ = plain.step_dispatch(carry, budget, 1)
+            d = carry["coords1"] - prev
+            norms.append(torch.sqrt((d * d).sum(-1).mean(dim=(1, 2))))
+        norms = torch.stack(norms, 1).cpu().numpy()
+    for shift, row in zip(EE_SHIFTS, norms):
+        print(f"early exit: shift {shift} px, plain run's mean update norm "
+              f"by iteration: {' '.join(f'{v:.4g}' for v in row)}")
+    launches = None
+    for ee in (EARLY_EXIT, EE_SPLIT):
+        pred = pkg.FlowPredictor(model, iters=SINTEL_ITERS, early_exit=ee)
+        pred.dispatch_batch(im1, im2, iters=SINTEL_ITERS)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        low, up, used = (t.cpu().numpy() for t in pred.dispatch_batch(
+            im1, im2, iters=SINTEL_ITERS))
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts(counters)
+        check_launches(counts, 1, {"corr_fwd": SINTEL_ITERS,
+                                   "update_step": SINTEL_ITERS},
+                       unit="batch")
+        launches = launches or counts
+        worst = 0.0
+        for k in sorted(set(used.tolist())):
+            klow, kup = (t.cpu().numpy() for t in plain.dispatch_batch(
+                im1, im2, iters=k))
+            for i in np.flatnonzero(used == k):
+                worst = max(worst, max_diff([(low[i], klow[i]),
+                                             (up[i], kup[i])]))
+        expected = exit_iters(norms, *ee)
+        print(f"early exit: RAFT-large B={len(im1)} "
+              f"{im1.shape[1]}x{im1.shape[2]}, iters={SINTEL_ITERS}, "
+              f"early_exit={ee}: iters_used {used.tolist()} (from the plain "
+              f"run's norms {expected}), {ms:.2f} ms for the batch; "
+              f"max|early exit - plain run to iters_used| = {worst:.3e} px "
+              f"(bar {TOL:g})")
+        if used.tolist() != expected:
+            fail(f"early exit at {ee}: iters_used {used.tolist()}, the "
+                 f"plain run's norms give {expected}")
+        if not np.isfinite(up).all() or not worst <= TOL:
+            fail("an early-exited sample disagrees with the plain run to "
+                 "its iters_used")
+    if len(set(used.tolist())) < 2:
+        fail(f"early exit at {EE_SPLIT}: every sample exited at iteration "
+             f"{used[0]}, so no sample was frozen while another updated")
+    carry = plain.step_carry_dispatch(im1, im2)
+    carry["coords1"] = carry["coords0"] + torch.from_numpy(low).cuda()
+    iteration_against_plain(torch, pkg, model, carry, "early exit", err)
+    return launches
+
+
+def stream_phase(torch, pkg, model, padder, rng, counters):
+    """A stream at the Sintel shape: one cold pair (two encodes, a cold
+    refine at iters=32), then STREAM_WARM_FRAMES warm frames (one encode,
+    forward_interpolate of the previous flow_low on the host, a warm refine
+    at warm_iters), run twice, the second timed and counted. Each pair's or
+    frame's time ends with its flow_low and flow_up on the host, as the
+    serve phase's pairs do; forward_interpolate's own host time is printed
+    beside it. The first warm frame's refine from encoded maps is held
+    against the pair call with the same flow_init at iters=32, and that
+    frame is profiled once more (profile_by_name). Returns the launches."""
+    pred = pkg.FlowPredictor(model, iters=SINTEL_ITERS,
+                             warm_iters=STREAM_WARM_ITERS)
+    base = rng.uniform(0, 255, (*SINTEL_HW, 3)).astype(np.float32)
+    seq = padder.pad(*[np.roll(base, (2 * t, -3 * t), axis=(0, 1))
+                       for t in range(STREAM_WARM_FRAMES + 2)])
+
+    def warm_frame(t, low, fm):
+        """Frame t after flow_low ``low`` and frame t-1's map ``fm``:
+        (flow_low, flow_up) on the host, frame t's map, the flow_init and
+        forward_interpolate's ms."""
+        fm_next = pred.encode_dispatch(seq[t][None])
+        t0 = time.perf_counter()
+        init = pkg.forward_interpolate(low)[None]
+        interp = 1e3 * (time.perf_counter() - t0)
+        low, up = pred.refine_dispatch(seq[t - 1][None], fm, fm_next,
+                                       flow_init=init, warm=True)
+        return (low[0].cpu().numpy(), up[0].cpu().numpy(), fm_next, init,
+                interp)
+
+    def run():
+        t0 = time.perf_counter()
+        fm_prev = pred.encode_dispatch(seq[0][None])
+        fm = pred.encode_dispatch(seq[1][None])
+        low, up = pred.refine_dispatch(seq[0][None], fm_prev, fm)
+        low, up = low[0].cpu().numpy(), up[0].cpu().numpy()
+        cold = 1e3 * (time.perf_counter() - t0)
+        warm, interps, first = [], [], None
+        for t in range(2, len(seq)):
+            t0 = time.perf_counter()
+            prev = (low, fm)
+            low, up, fm, init, interp = warm_frame(t, low, fm)
+            warm.append(1e3 * (time.perf_counter() - t0))
+            interps.append(interp)
+            if not np.isfinite(up).all():
+                fail(f"the stream's warm frame {t} has non-finite flow")
+            if first is None:
+                first = (t, prev, fm, init)
+        return cold, warm, interps, first
+
+    run()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    cold, warm, interps, (t, (low, fa), fb, init) = run()
+    launches = read_counts(counters)
+    per_stream = SINTEL_ITERS + STREAM_WARM_FRAMES * STREAM_WARM_ITERS
+    check_launches(launches, 1, {"corr_fwd": per_stream,
+                                 "update_step": per_stream}, unit="stream")
+    a, b = seq[t - 1], seq[t]
+    maps = pred.refine_dispatch(a[None], fa, fb, flow_init=init, warm=True,
+                                iters=SINTEL_ITERS)
+    pair = pred(a, b, flow_init=init[0])
+    d = max_diff([(m[0].cpu().numpy(), p) for m, p in zip(maps, pair)])
+    print(f"stream: RAFT-large {a.shape[0]}x{a.shape[1]}, one cold pair "
+          f"(iters={SINTEL_ITERS}) {cold:.2f} ms, {STREAM_WARM_FRAMES} warm "
+          f"frames (warm_iters={STREAM_WARM_ITERS}, one encode each): median "
+          f"{statistics.median(warm):.2f} ms/frame (all "
+          f"{', '.join(f'{t:.2f}' for t in warm)}), of which "
+          f"forward_interpolate on the host median "
+          f"{statistics.median(interps):.2f} ms (all "
+          f"{', '.join(f'{t:.2f}' for t in interps)}); refine from encoded "
+          f"maps vs the pair call with flow_init: max|diff| = {d:.3e} px "
+          f"(bar {STREAM_PX:g})")
+    if not d < STREAM_PX:
+        fail("the stream's refine from encoded maps disagrees with the "
+             "pair call")
+    profile_by_name(torch, lambda: warm_frame(t, low, fa), "stream profile",
+                    f"one warm frame (warm_iters={STREAM_WARM_ITERS})",
+                    kernels=("corr_fwd_kernel", "update_step_kernel"))
+    return launches
+
+
+def step_phase(torch, pkg, model, frames, counters, err):
+    """A STEP_SLOTS-slot table at the Sintel shape: the STEP_REQUESTS
+    admitted before their chunks, stepped in chunks of STEP_CHUNK, each
+    finalised once its budget (iters - 1) is spent; each flow against the
+    monolithic dispatch_batch(iters=k), and the iteration's kernels
+    against their plain versions on the table's last state. Returns the
+    launches."""
+    pred = pkg.FlowPredictor(model, iters=SINTEL_ITERS)
+    zeros = np.zeros((STEP_SLOTS, *frames[0][0].shape), np.float32)
+    carry = pred.step_carry_dispatch(zeros, zeros)
+    torch.cuda.synchronize()
+    remaining = np.zeros(STEP_SLOTS, np.int32)
+    pairs = {name: frames[1 + i] for i, (name, *_) in
+             enumerate(STEP_REQUESTS)}
+    results, chunk, finals = {}, 0, 0
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    while len(results) < len(STEP_REQUESTS):
+        for name, at, slot, iters in STEP_REQUESTS:
+            if at == chunk:
+                im1, im2 = pairs[name]
+                carry = pred.step_admit_dispatch(im1[None], im2[None],
+                                                 [slot], carry)
+                remaining[slot] = iters - 1
+        carry, rem = pred.step_dispatch(carry, remaining, STEP_CHUNK)
+        remaining = np.maximum(remaining - STEP_CHUNK, 0)
+        chunk += 1
+        for name, at, slot, iters in STEP_REQUESTS:
+            if at < chunk and name not in results and not remaining[slot]:
+                low, up = pred.step_finalize_dispatch(carry)
+                finals += 1
+                results[name] = (low[slot].cpu().numpy(),
+                                 up[slot].cpu().numpy())
+                if not np.array_equal(rem.cpu().numpy(), remaining):
+                    fail(f"step_dispatch's remaining {rem.tolist()} is not "
+                         f"the host's {remaining.tolist()}")
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts(counters)
+    per_launch = STEP_CHUNK * chunk + finals
+    check_launches(launches, 1, {"corr_fwd": per_launch,
+                                 "update_step": per_launch}, unit="table")
+    worst = 0.0
+    for name, at, slot, iters in STEP_REQUESTS:
+        im1, im2 = pairs[name]
+        want = [t[0].cpu().numpy() for t in pred.dispatch_batch(
+            im1[None], im2[None], iters=iters)]
+        worst = max(worst, max_diff(zip(results[name], want)))
+    print(f"step-granular: {STEP_SLOTS} slots "
+          f"{zeros.shape[1]}x{zeros.shape[2]}, requests at iters "
+          f"{[r[3] for r in STEP_REQUESTS]} admitted before chunks "
+          f"{[r[1] for r in STEP_REQUESTS]}, chunks of {STEP_CHUNK}: "
+          f"{chunk} chunks and {finals} finalizes in {ms:.2f} ms; max|step "
+          f"- monolithic dispatch_batch(iters=k)| = {worst:.3e} px (bar "
+          f"{TOL:g})")
+    if not worst <= TOL:
+        fail("a step-granular request disagrees with the monolithic "
+             "forward")
+    iteration_against_plain(torch, pkg, model, carry, "step table", err)
+    return launches
+
+
 def main():
     import torch
 
@@ -1623,8 +1994,9 @@ def main():
 
     from raft_tpu_torch.config import OursConfig, RAFTConfig, TrainConfig
     from raft_tpu_torch.evaluate import (ASSETS_DIR, SPARSE_GOLDEN,
-                                         load_predictor, use_float32_math,
-                                         validate_golden)
+                                         FlowPredictor, load_predictor,
+                                         use_float32_math, validate_golden,
+                                         validate_golden_small)
     from raft_tpu_torch.models import corr
     from raft_tpu_torch.models.ours import SparseRAFT
     from raft_tpu_torch.models.raft import RAFT
@@ -1635,6 +2007,7 @@ def main():
                                                     make_train_step)
     from raft_tpu_torch.train import train
     from raft_tpu_torch.utils.padder import InputPadder
+    from raft_tpu_torch.utils.warm_start import forward_interpolate
     from raft_tpu_torch.weights import load_npz
 
     print(card_line())
@@ -1753,6 +2126,13 @@ def main():
                      f"plain lookup at {label}: {rel:.3e}")
     corr_bwd_rel = max(corr_bwd_rel, check_corr_paths(
         torch, corr_cuda, corr, sampling, rng, radius, feat, err))
+    # RAFT-small's lookup: r=3, C=128 on the shared path's channel list, at
+    # its golden and Sintel feature shapes (the same as RAFT-large's)
+    small_radius = RAFTConfig(small=True).radius
+    corr_bwd_rel = max(corr_bwd_rel, check_corr_paths(
+        torch, corr_cuda, corr, sampling, rng, small_radius, feat, err,
+        c=SMALL_C, cases=[(label, 1, h, w, CORR_FLOWS["sintel"])
+                          for label, (h, w) in feat.items()]))
 
     # the sparse family's kernels at its full-width shapes: the fork lookup
     # at the three token levels of 352x480 (B=8, 2 levels, no per-level
@@ -1907,7 +2287,50 @@ def main():
         load_npz=load_npz, train=train, corr_cuda=corr_cuda,
         step_cuda=step_cuda, motion_cuda=motion_cuda, gru_cuda=gru_cuda,
         msda=msda, msda_cuda=msda_cuda, load_predictor=load_predictor,
-        SPARSE_GOLDEN=SPARSE_GOLDEN, counters=counters)
+        SPARSE_GOLDEN=SPARSE_GOLDEN, counters=counters,
+        FlowPredictor=FlowPredictor,
+        validate_golden_small=validate_golden_small,
+        forward_interpolate=forward_interpolate)
+
+    # -- RAFT-small: goldens, then Sintel-size pairs -----------------------
+    t0 = time.perf_counter()
+    small_goldens(torch, pkg, counters)
+    phase_seconds("golden small", t0)
+    t0 = time.perf_counter()
+    small = load_predictor(SMALL_WEIGHTS, small=True, iters=SINTEL_ITERS)
+    small_times, small_launches = serve_pairs(torch, small, padder, frames,
+                                              counters)
+    print(f"serve small: RAFT-small f32, {SERVE_PAIRS} Sintel pairs "
+          f"{SINTEL_HW[0]}x{SINTEL_HW[1]} (padded {padded[0]}x{padded[1]}), "
+          f"iters={SINTEL_ITERS}, B=1: median "
+          f"{statistics.median(small_times):.2f} ms/pair "
+          f"(all {', '.join(f'{t:.2f}' for t in small_times)})")
+    small_shares = print_path_shares(
+        corr_cuda, f"serve small: {SERVE_PAIRS} Sintel pairs, r="
+        f"{small_radius} C={SMALL_C}", ("fwd",))
+    check_launches(small_launches, SERVE_PAIRS, {"corr_fwd": SINTEL_ITERS})
+    # its lookup timed at the Sintel shape (the backward too, for the
+    # small model's training to come)
+    small_ct, timed_rel = corr_timings(
+        torch, corr_cuda, corr, sampling, rng, small_radius, feat, err,
+        c=SMALL_C, cases=[("sintel", 1, *feat["sintel"],
+                           CORR_FLOWS["sintel"])])
+    corr_bwd_rel = max(corr_bwd_rel, timed_rel)
+    phase_seconds("serve small", t0)
+
+    # -- RAFT's serving entry points on RAFT-large -------------------------
+    t0 = time.perf_counter()
+    ee_launches = early_exit_phase(torch, pkg, serve.model, padder,
+                                   counters, err)
+    phase_seconds("early exit", t0)
+    t0 = time.perf_counter()
+    stream_launches = stream_phase(torch, pkg, serve.model, padder, rng,
+                                   counters)
+    phase_seconds("stream", t0)
+    t0 = time.perf_counter()
+    table_launches = step_phase(torch, pkg, serve.model, frames, counters,
+                                err)
+    phase_seconds("step-granular", t0)
 
     # -- serve SparseRAFT at full OursConfig widths ------------------------
     sparse_problems = []
@@ -2156,6 +2579,20 @@ def main():
               by_input={k: {f: v for f, v in row.items() if f != "work"}
                         for k, row in mt[kind].items()},
               **extra)
+    named = {k["name"]: k for k in kernels}
+    for kind in ("fwd", "bwd"):
+        named[f"corr_{kind}"]["small_r3"] = {
+            key.split()[1]: {f: v for f, v in row.items() if f != "work"}
+            for key, row in small_ct[kind].items()}
+    named["corr_fwd"].update(
+        launches_small=small_launches["corr_fwd"],
+        launches_per_pair_small=small_launches["corr_fwd"] / SERVE_PAIRS,
+        shared_share_small_serve=small_shares["fwd"])
+    for name in ("corr_fwd", "update_step"):
+        named[name].update(
+            launches_early_exit=ee_launches[name],
+            launches_stream=stream_launches[name],
+            launches_step_granular=table_launches[name])
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         tile = (f", f32 SIMT bound {k['bound_ms_f32_simt']:.4f} ms, "
@@ -2164,7 +2601,6 @@ def main():
         print(f"{k['name']}: {k['ms']:.4f} ms a launch, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}){tile}, plain "
               f"{k['plain_ms']:.4f} ms, library {lib}")
-    named = {k["name"]: k for k in kernels}
     mg = named["update_step"]
     print(f"update_step 'mg': {mg['ms_mg']:.4f} ms a launch, bound "
           f"{mg['bound_ms_mg']:.4f} ms, f32 SIMT bound "
@@ -2175,7 +2611,7 @@ def main():
     for k in (cf, cb):
         for key, row in k["by_input"].items():
             print(f"{k['name']} {key} ({row['shape']}): {row['ms']:.4f} ms "
-                  f"a launch, bound {row['bound_ms']:.4f} ms (3xTF32), "
+                  f"a launch, queued {row['ms_q']:.4f} ms, bound {row['bound_ms']:.4f} ms (3xTF32), "
                   f"{row['bound_ms_f32_simt']:.4f} ms (f32 SIMT); shared "
                   f"path on {100 * row['shared_share']:.1f}% of (tile, "
                   f"level) blocks"
@@ -2191,6 +2627,13 @@ def main():
                   f"{100 * k['shared_share_sparse'][str(c)]:.1f}% of blocks")
         print(f"{k['name']} SASS, tensor-core TF32 MMAs: "
               f"{k['sass_tf32_mma']}")
+        for flow, row in k["small_r3"].items():
+            print(f"{k['name']} RAFT-small {flow} ({row['shape']}): "
+                  f"{row['ms']:.4f} ms a launch, queued {row['ms_q']:.4f} ms,"
+                  f" bound {row['bound_ms']:.4f} ms (3xTF32), {row['bound_ms_f32_simt']:.4f} ms (f32 "
+                  f"SIMT); plain {row['plain_ms']:.4f} ms; shared path on "
+                  f"{100 * row['shared_share']:.1f}% of (tile, level) "
+                  f"blocks")
     for name in ("msda_fwd", "msda_bwd"):
         k = named[name]
         print(f"{name} at the encoder shape: {k['ms_encoder']:.4f} ms a "
@@ -2206,6 +2649,8 @@ def main():
                   f"ms a launch ({where}), bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})")
     profile_pair(torch, serve, *frames[1])
+    profile_pair(torch, small, *frames[1], label="profile small",
+                 per_iteration="corr_fwd_kernel")
     pred, frames_b = sparse_preds[SPARSE_RUNS[0][0]]
     sparse_shares = profile_by_name(
         torch, lambda: pred.predict_batch(*frames_b), "sparse profile",

@@ -2,9 +2,12 @@
 
 The PyTorch and CUDA port of the JAX package ``raft_tpu``, which stays the
 reference it is tested against. Module names follow ``raft_tpu``'s. It
-covers RAFT-large in float32: inference (``evaluate.FlowPredictor``) and
-training (``train.train``), both through ``models.raft.RAFT``, whose
-refinement loop runs CUDA kernels written for Hopper: the windowed
+covers RAFT-large in float32: inference (``evaluate.FlowPredictor``, with
+RAFT's serving entry points: early exit, warm start, the stream's encode
+and refine, the step-granular refine; ``entry.entry``) and training
+(``train.train``), and RAFT-small's inference, all through
+``models.raft.RAFT``, whose refinement loop runs CUDA kernels written for
+Hopper (RAFT-small: the lookup only; its update block is cuDNN): the windowed
 correlation lookup and its backward (``ops/corr_cuda.py``,
 ``csrc/corr_fwd.cu``, ``csrc/corr_bwd.cu``) and the update step
 (``ops/step_cuda.py``, ``csrc/update_step.cu``), or the motion encoder and

@@ -1,6 +1,9 @@
 """Inference and validation, the counterpart of ``raft_tpu/evaluate.py``'s
-``FlowPredictor``, ``load_predictor``, golden fixture and CLI, for RAFT-large
-and the sparse-keypoint family (``SparseRAFT``).
+``FlowPredictor`` (with its serving entry points: per-request iterations
+and early exit, warm start, the stream's encode and refine, the
+step-granular refine), ``load_predictor``, golden fixtures, validators and
+CLI, for RAFT-large, RAFT-small and the sparse-keypoint family
+(``SparseRAFT``).
 
 Inputs and outputs are numpy HWC arrays, as in the JAX package. Every entry
 point runs on the CUDA card unless the caller passes ``device="cpu"``;
@@ -11,6 +14,8 @@ like the reference.
 Run the golden checks on the card (add ``--device cpu`` for the CPU):
     python -m raft_tpu_torch.evaluate --model assets/golden/weights.npz \
         --dataset golden
+    python -m raft_tpu_torch.evaluate --small \
+        --model assets/golden/weights_small.npz --dataset golden_small
     python -m raft_tpu_torch.evaluate --model_family sparse \
         --model assets/golden/sparse_tiny.npz --dataset golden
 """
@@ -20,7 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os.path as osp
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ import torch
 from raft_tpu_torch.config import OursConfig, RAFTConfig
 from raft_tpu_torch.data import frame_utils
 from raft_tpu_torch.models.ours import SparseRAFT
-from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.models.raft import RAFT, scatter_carry
 from raft_tpu_torch.models.update import UPDATE_IMPLS
 from raft_tpu_torch.weights import load_npz
 
@@ -75,14 +80,29 @@ class FlowPredictor:
         launch of the step kernel; ``"chain"`` runs the motion kernel and
         then the GRU kernel (the counterpart of ``RAFT_STEP_PALLAS=auto``
         and ``=0``). On the CPU both run the plain versions.
+      warm_iters: iterations of a warm stream frame
+        (:meth:`refine_dispatch` with ``warm=True``); None means ``iters``.
+      early_exit: ``(tol, patience)`` for the explicit-``iters`` path of
+        :meth:`dispatch_batch` and the step-granular refine
+        (:meth:`step_dispatch`), as ``RAFT.forward``'s.
 
     ``SparseRAFT`` runs with its config's correlation engine and refuses
-    both levers; it pads nothing, as in JAX.
+    both levers and the canonical family's serving entry points; it pads
+    nothing, as in JAX.
+
+    The ``*_dispatch`` methods return device tensors without waiting for
+    the card (CUDA's queue is the counterpart of JAX's asynchronous
+    dispatch); the caller syncs when it reads them. The JAX predictor's
+    compile cache, its keys, ``donate_images`` and its mesh paths have no
+    meaning in eager PyTorch and are left out; sharded evaluation is not
+    ported (ROADMAP.md).
     """
 
     def __init__(self, model, iters: int = 32,
                  batch_size: Optional[int] = None, device=None,
-                 corr_impl: Optional[str] = None, update_impl: str = "step"):
+                 corr_impl: Optional[str] = None, update_impl: str = "step",
+                 warm_iters: Optional[int] = None,
+                 early_exit: Optional[Tuple[float, int]] = None):
         self.sparse = isinstance(model, SparseRAFT)
         if self.sparse and (corr_impl is not None or update_impl != "step"):
             raise ValueError("alternate_corr, corr_impl and update_impl "
@@ -100,6 +120,16 @@ class FlowPredictor:
         batch_size = 1 if batch_size is None else batch_size
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if warm_iters is not None and warm_iters < 1:
+            raise ValueError(f"warm_iters must be >= 1, got {warm_iters}")
+        if early_exit is not None:
+            tol, patience = early_exit
+            if not tol > 0.0:
+                raise ValueError(f"early_exit tol must be > 0, got {tol}")
+            if int(patience) < 1:
+                raise ValueError(
+                    f"early_exit patience must be >= 1, got {patience}")
+            early_exit = (float(tol), int(patience))
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_float32_math()
@@ -107,33 +137,158 @@ class FlowPredictor:
         self.iters = iters
         self.batch_size = batch_size
         self.update_impl = update_impl
+        self.warm_iters = warm_iters
+        self.early_exit = early_exit
         if not self.sparse:
             self.alternate_corr = (self.device.type == "cuda"
                                    if corr_impl == "auto"
                                    else model.config.alternate_corr)
 
-    def predict_batch(self, images1: np.ndarray, images2: np.ndarray):
-        """(B, H, W, 3) stacks in [0, 255] (float32 or uint8), H and W
-        multiples of 8 -> ``(flow_low (B, H/8, W/8, 2), flow_up
-        (B, H, W, 2))`` numpy float32."""
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _put(self, a) -> torch.Tensor:
+        """A numpy array or tensor on the predictor's device."""
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device)
 
+    def _forward(self, images1, images2, **kwargs):
         with torch.inference_mode():
             if self.sparse:
-                low, up = self.model(put(images1), put(images2),
-                                     iters=self.iters, test_mode=True)
-            else:
-                low, up = self.model(put(images1), put(images2),
-                                     iters=self.iters,
-                                     alternate_corr=self.alternate_corr,
-                                     update_impl=self.update_impl)
-            return low.cpu().numpy(), up.cpu().numpy()
+                return self.model(self._put(images1), self._put(images2),
+                                  iters=self.iters, test_mode=True)
+            return self.model(
+                self._put(images1),
+                None if images2 is None else self._put(images2),
+                alternate_corr=self.alternate_corr,
+                update_impl=self.update_impl, **kwargs)
 
-    def __call__(self, image1: np.ndarray, image2: np.ndarray):
-        """One (H, W, 3) pair -> ``(flow_low, flow_up)``."""
-        low, up = self.predict_batch(image1[None], image2[None])
-        return low[0], up[0]
+    def dispatch_batch(self, images1, images2, iters: Optional[int] = None):
+        """(B, H, W, 3) stacks in [0, 255] (float32 or uint8), H and W
+        multiples of 8 -> ``(flow_low (B, H/8, W/8, 2), flow_up (B, H, W,
+        2))`` device tensors, without waiting for the card.
+
+        ``iters``: this call's iteration count (None: ``self.iters``).
+        With an explicit count and the predictor's ``early_exit`` set, the
+        masked refine runs and a third tensor (B,) int32 holds each
+        sample's iterations used."""
+        if iters is None:
+            return self._forward(images1, images2, iters=self.iters)
+        if self.sparse:
+            raise ValueError("per-request iters applies to the canonical "
+                             "RAFT family only")
+        if int(iters) < 1:
+            raise ValueError(f"iters must be >= 1, got {iters}")
+        return self._forward(images1, images2, iters=int(iters),
+                             early_exit=self.early_exit)
+
+    def predict_batch(self, images1, images2):
+        """The blocking :meth:`dispatch_batch`: numpy float32 ``(flow_low,
+        flow_up)``."""
+        low, up = self.dispatch_batch(images1, images2)
+        return low.cpu().numpy(), up.cpu().numpy()
+
+    def __call__(self, image1: np.ndarray, image2: np.ndarray,
+                 flow_init: Optional[np.ndarray] = None):
+        """One (H, W, 3) pair -> ``(flow_low, flow_up)`` numpy;
+        ``flow_init`` (H/8, W/8, 2) warm-starts the refinement."""
+        if flow_init is None:
+            low, up = self.predict_batch(image1[None], image2[None])
+            return low[0], up[0]
+        self._require_raft("warm-start")
+        low, up = self._forward(image1[None], image2[None], iters=self.iters,
+                                flow_init=self._put(flow_init)[None])
+        return low[0].cpu().numpy(), up[0].cpu().numpy()
+
+    # -- streams: encode each frame once, refine from cached maps ----------
+
+    def _require_raft(self, what: str) -> None:
+        if self.sparse:
+            raise ValueError(f"the {what} path applies to the canonical "
+                             "RAFT family only")
+
+    def encode_dispatch(self, images) -> torch.Tensor:
+        """``fnet`` alone: (B, H, W, 3) -> (B, H/8, W/8, C) device tensor.
+        In a stream, frame t's map is pair t's ``fmap2`` and pair t+1's
+        ``fmap1``."""
+        self._require_raft("streaming encode")
+        with torch.inference_mode():
+            return self.model.encode_features(self._put(images))
+
+    def refine_dispatch(self, images1, fmap1, fmap2, flow_init=None,
+                        warm: bool = False, iters: Optional[int] = None):
+        """The forward from encoded maps: (B, H, W, 3) first images (the
+        context encoder's input) and (B, H/8, W/8, C) maps -> ``(flow_low,
+        flow_up)`` device tensors. ``warm=True`` requires ``flow_init``
+        (B, H/8, W/8, 2) and runs ``warm_iters`` (``iters`` when unset);
+        a cold refine takes no ``flow_init``. ``iters`` overrides the
+        count of a warm refine only."""
+        self._require_raft("streaming refine")
+        if warm and flow_init is None:
+            raise ValueError("warm refine requires flow_init")
+        if not warm and flow_init is not None:
+            raise ValueError("cold refine takes no flow_init (warm=True "
+                             "selects the warm refine)")
+        if iters is not None and not warm:
+            raise ValueError("per-request iters applies to warm refine "
+                             "only; cold pairs keep the cold policy")
+        if iters is not None and int(iters) < 1:
+            raise ValueError(f"iters must be >= 1, got {iters}")
+        if iters is None:
+            iters = self.warm_iters if warm and self.warm_iters else self.iters
+        return self._forward(
+            images1, None, iters=int(iters), fmap1=self._put(fmap1),
+            fmap2=self._put(fmap2),
+            flow_init=None if flow_init is None else self._put(flow_init))
+
+    # -- step-granular refine (continuous batching) ------------------------
+
+    def step_carry_dispatch(self, images1, images2) -> dict:
+        """A slot table over ``(slots, H, W, 3)`` stacks: ``refine_init``
+        at full width, the carry of :meth:`step_dispatch`."""
+        self._require_raft("continuous bootstrap")
+        with torch.inference_mode():
+            return self.model.refine_init(self._put(images1),
+                                          self._put(images2),
+                                          alternate_corr=self.alternate_corr)
+
+    def step_admit_dispatch(self, images1, images2, idx, carry) -> dict:
+        """Admit ``m`` requests, (m, H, W, 3) stacks, into slot rows
+        ``idx`` of ``carry``: their ``refine_init`` scattered into a new
+        carry (``scatter_carry``)."""
+        self._require_raft("continuous admit")
+        with torch.inference_mode():
+            fresh = self.model.refine_init(self._put(images1),
+                                           self._put(images2),
+                                           alternate_corr=self.alternate_corr)
+            return scatter_carry(carry, fresh, _host_ints(idx),
+                                 int(carry["net"].shape[0]))
+
+    def step_dispatch(self, carry: dict, remaining, steps: int):
+        """``steps`` masked iterations over every slot; ``remaining``
+        (slots,) is each slot's budget of mask-free iterations still owed,
+        from the host. Slots out of budget (or early-exited, with the
+        predictor's ``early_exit``) are frozen. Returns ``(carry',
+        remaining')`` device values."""
+        self._require_raft("continuous step")
+        if int(steps) < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        with torch.inference_mode():
+            return self.model.refine_chunk(carry, _host_ints(remaining),
+                                           int(steps),
+                                           self.early_exit, self.update_impl)
+
+    def step_finalize_dispatch(self, carry: dict):
+        """The mask-computing final iteration over every slot: ``(flow_low,
+        flow_up)`` device tensors at the slot width; ``carry`` stays as it
+        is for the slots still stepping. A request's ``k-1`` chunked
+        iterations and this call give ``dispatch_batch(iters=k)``'s flow."""
+        self._require_raft("continuous finalize")
+        with torch.inference_mode():
+            return self.model.refine_finalize(carry, self.update_impl)
+
+
+def _host_ints(a) -> torch.Tensor:
+    """A sequence or array of integers, or a tensor, as a tensor."""
+    return a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
 
 
 def _predict_dataset(predictor: FlowPredictor, dataset):
@@ -171,14 +326,19 @@ def _epe_map(flow: np.ndarray, flow_gt: np.ndarray) -> np.ndarray:
 class _GoldenFixture:
     """The repo's golden fixtures (``assets/``): item ``idx`` is
     ``(image1, image2, flow_gt, flow_golden)``, where ``flow_golden`` is the
-    canonical torch RAFT's output with the fixture weights."""
+    canonical torch RAFT's output with the fixture weights. ``variant``:
+    "large" or "small", each with its own weights and golden outputs."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, variant: str = "large"):
         self.frames = osp.join(root, "demo-frames")
         self.golden = osp.join(root, "golden")
         with open(osp.join(self.golden, "manifest.json")) as f:
             self.manifest = json.load(f)
-        self.pairs = self.manifest["pairs"]
+        if variant == "large":
+            self.prefix, self.pairs = "flow_golden", self.manifest["pairs"]
+        else:
+            sub = self.manifest[variant]
+            self.prefix, self.pairs = sub["prefix"], sub["pairs"]
 
     def __len__(self):
         return len(self.pairs)
@@ -191,15 +351,26 @@ class _GoldenFixture:
             osp.join(self.frames, pair["frame2"])), np.float32)
         gt = frame_utils.read_flo(
             osp.join(self.golden, f"flow_gt_{idx:02d}.flo"))
-        golden = np.load(osp.join(self.golden, f"flow_golden_{idx:02d}.npy"))
+        golden = np.load(osp.join(self.golden,
+                                  f"{self.prefix}_{idx:02d}.npy"))
         return img1, img2, gt, golden
 
 
-def validate_golden(predictor: FlowPredictor, root=None) -> Dict[str, float]:
-    """RAFT-large against the committed goldens: ``golden_parity_epe``
-    (against the stored canonical torch outputs, float noise when right)
-    and ``golden_gt_epe`` (against the exact synthetic ground truth)."""
-    fixture = _GoldenFixture(root or ASSETS_DIR)
+def validate_golden(predictor: FlowPredictor, root=None,
+                    variant: str = "large") -> Dict[str, float]:
+    """RAFT against the committed goldens of its size (``variant``
+    "large" or "small"): ``golden_parity_epe`` (against the stored
+    canonical torch outputs, float noise when right) and ``golden_gt_epe``
+    (against the exact synthetic ground truth); the small variant's keys
+    are ``golden_small_*``."""
+    cfg = getattr(predictor.model, "config", None)
+    if cfg is not None and hasattr(cfg, "small") and bool(
+            cfg.small) != (variant == "small"):
+        raise ValueError(
+            f"golden variant {variant!r} vs model small={cfg.small}: the "
+            "goldens are recorded per model size (use golden_small with "
+            "the small model)")
+    fixture = _GoldenFixture(root or ASSETS_DIR, variant)
     want = fixture.manifest["iters"]
     if predictor.iters != want:
         print(f"WARNING: golden outputs recorded at iters={want}, "
@@ -209,11 +380,32 @@ def validate_golden(predictor: FlowPredictor, root=None) -> Dict[str, float]:
     for _, sample, flow in _predict_dataset(predictor, fixture):
         parity.append(float(_epe_map(flow, sample[3]).mean()))
         gt_epes.append(float(_epe_map(flow, sample[2]).mean()))
-    results = {"golden_parity_epe": float(np.mean(parity)),
-               "golden_gt_epe": float(np.mean(gt_epes))}
-    print(f"Validation Golden[large]: parity EPE "
-          f"{results['golden_parity_epe']:.6f}, "
-          f"GT EPE {results['golden_gt_epe']:.4f}")
+    key = "golden" if variant == "large" else f"golden_{variant}"
+    results = {f"{key}_parity_epe": float(np.mean(parity)),
+               f"{key}_gt_epe": float(np.mean(gt_epes))}
+    print(f"Validation Golden[{variant}]: parity EPE "
+          f"{results[f'{key}_parity_epe']:.6f}, "
+          f"GT EPE {results[f'{key}_gt_epe']:.4f}")
+    return results
+
+
+def validate_golden_small(predictor: FlowPredictor,
+                          root=None) -> Dict[str, float]:
+    """RAFT-small against its goldens; the predictor holds
+    ``RAFT(RAFTConfig(small=True))`` with ``assets/golden/weights_small.npz``."""
+    return validate_golden(predictor, root=root, variant="small")
+
+
+_VALIDATORS = {"golden": validate_golden,
+               "golden_small": validate_golden_small}
+
+
+def run_validation(predictor: FlowPredictor, names) -> Dict[str, float]:
+    """The validators of ``names`` (keys of ``_VALIDATORS``), results
+    merged."""
+    results: Dict[str, float] = {}
+    for name in names:
+        results.update(_VALIDATORS[name](predictor))
     return results
 
 
@@ -252,29 +444,48 @@ def load_sparse_npz(path: str, config: Optional[OursConfig] = None):
     return cfg, state
 
 
+def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.pth``/``.pt`` checkpoint of the reference as a state dict
+    in float32: loaded on the CPU with ``weights_only=True``, a ``"model"``
+    entry unwrapped, DataParallel's ``module.`` prefix stripped (as
+    ``raft_tpu/utils/torch_convert.py`` reads them)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "model" in state:
+        state = state["model"]
+    return {(k[len("module."):] if k.startswith("module.") else k):
+            (v.float() if v.is_floating_point() else v)
+            for k, v in state.items()}
+
+
 def load_predictor(model_path: str, iters: int = 32,
                    alternate_corr: bool = False,
                    corr_impl: Optional[str] = None,
                    device=None, update_impl: str = "step",
                    model_family: str = "raft",
                    config: Optional[OursConfig] = None,
-                   seed: int = 0) -> FlowPredictor:
-    """A :class:`FlowPredictor` for RAFT-large from a torch-named ``.npz``
-    archive. ``corr_impl=None`` means ``"auto"``, or ``"fixed"`` when
+                   seed: int = 0, small: bool = False) -> FlowPredictor:
+    """A :class:`FlowPredictor` for RAFT-large, or RAFT-small with
+    ``small=True``, from torch-named weights: a ``.npz`` archive or a
+    reference ``.pth``/``.pt`` checkpoint (``load_torch_state``). An orbax
+    run directory of the JAX package is refused: reading it needs JAX.
+    ``corr_impl=None`` means ``"auto"``, or ``"fixed"`` when
     ``alternate_corr`` asks for an engine explicitly.
 
     ``model_family="sparse"`` builds ``SparseRAFT(config)`` (default
     ``OursConfig()``) with random weights from ``seed`` for
     ``model_path="random"`` (no sparse-family weights are published), or
     with the weights of a ``.npz`` archive (``load_sparse_npz``). The RAFT
-    levers ``alternate_corr``, ``corr_impl`` and ``update_impl`` refuse a
-    sparse request (in :class:`FlowPredictor`)."""
+    levers ``small``, ``alternate_corr``, ``corr_impl`` and
+    ``update_impl`` refuse a sparse request."""
     if model_family not in MODEL_FAMILIES:
         raise ValueError(f"model_family must be one of {MODEL_FAMILIES}, "
                          f"got {model_family!r}")
     if corr_impl is None and alternate_corr:
         corr_impl = "fixed"
     if model_family == "sparse":
+        if small:
+            raise ValueError("small applies to the canonical RAFT family "
+                             "only")
         if model_path == "random":
             model = SparseRAFT(config or OursConfig())
             model.init_weights(torch.Generator().manual_seed(seed))
@@ -289,27 +500,38 @@ def load_predictor(model_path: str, iters: int = 32,
                              corr_impl=corr_impl, update_impl=update_impl)
     if config is not None:
         raise ValueError("config is the sparse family's OursConfig")
-    if not model_path.endswith(".npz"):
-        raise ValueError("the port loads torch-named .npz archives only "
-                         f"(got {model_path!r})")
-    model = RAFT(RAFTConfig(alternate_corr=alternate_corr))
-    model.load_state_dict(load_npz(model_path))
+    if model_path.endswith(".npz"):
+        state = load_npz(model_path)
+    elif model_path.endswith((".pth", ".pt")):
+        state = load_torch_state(model_path)
+    elif osp.isdir(model_path):
+        raise ValueError(f"{model_path} is a directory: an orbax run "
+                         "directory of the JAX package needs JAX to read; "
+                         "the port loads torch-named .npz, .pth or .pt "
+                         "weights")
+    else:
+        raise ValueError("the port loads torch-named .npz, .pth or .pt "
+                         f"weights (got {model_path!r})")
+    model = RAFT(RAFTConfig(small=small, alternate_corr=alternate_corr))
+    model.load_state_dict(state)
     return FlowPredictor(model, iters=iters, device=device,
                          corr_impl=corr_impl, update_impl=update_impl)
 
 
 def main(argv=None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(
-        description="Validate RAFT-large or the sparse family with the "
-                    "PyTorch port.")
+        description="Validate RAFT-large, RAFT-small or the sparse family "
+                    "with the PyTorch port.")
     parser.add_argument("--model", required=True,
-                        help="torch-named .npz weights ('random' for the "
-                             "sparse family)")
+                        help="torch-named .npz, .pth or .pt weights "
+                             "('random' for the sparse family)")
     parser.add_argument("--model_family", default="raft",
                         choices=list(MODEL_FAMILIES),
                         help="raft: the goldens of assets/golden; sparse: "
                              "the JAX-made fixture sparse_tiny.npz")
-    parser.add_argument("--dataset", required=True, choices=["golden"])
+    parser.add_argument("--dataset", required=True, choices=list(_VALIDATORS))
+    parser.add_argument("--small", action="store_true",
+                        help="RAFT-small (with --dataset golden_small)")
     parser.add_argument("--iters", type=int, default=12,
                         help="refinement iterations (the goldens are "
                              "recorded at 12)")
@@ -323,15 +545,24 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.dataset == "golden_small" and not args.small:
+        parser.error("--dataset golden_small compares against RAFT-small "
+                     "goldens; pass --small (and the small weights)")
+    if args.dataset == "golden" and args.small:
+        parser.error("--dataset golden compares against RAFT-large "
+                     "goldens; use --dataset golden_small for --small")
     if args.model_family == "sparse":
+        if args.small:
+            parser.error("--small applies to the canonical RAFT family only")
         return validate_sparse_golden(load_predictor(
             args.model, model_family="sparse", device=args.device))
     predictor = load_predictor(args.model, iters=args.iters,
                                alternate_corr=args.alternate_corr,
                                corr_impl=args.corr_impl,
                                device=args.device,
-                               update_impl=args.update_impl)
-    return validate_golden(predictor)
+                               update_impl=args.update_impl,
+                               small=args.small)
+    return run_validation(predictor, [args.dataset])
 
 
 if __name__ == "__main__":

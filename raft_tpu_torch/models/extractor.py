@@ -1,12 +1,14 @@
-"""Feature and context encoders of canonical RAFT-large, the counterpart of
+"""Feature and context encoders of canonical RAFT, the counterpart of
 ``raft_tpu/models/extractor.py`` (``Norm``, ``ResidualBlock``,
-``BasicEncoder``); the sparse family's encoders reuse the block with GELU
-(``models/sparse_extractor.py``).
+``BasicEncoder`` of RAFT-large; ``BottleneckBlock``, ``SmallEncoder`` of
+RAFT-small); the sparse family's encoders reuse the residual block with
+GELU (``models/sparse_extractor.py``).
 
 Attribute names follow the torch state-dict keys of the reference weights
 (``conv1``, ``norm1``, ``layer1.0`` ...; the stride-2 shortcut is registered
-both as ``downsample`` = Sequential(conv, norm) and as ``norm3``), so
-``load_state_dict`` takes those weights with no renaming. Inside, tensors
+both as ``downsample`` = Sequential(conv, norm) and as ``norm3``, or
+``norm4`` in the bottleneck block), so ``load_state_dict`` takes those
+weights with no renaming. Inside, tensors
 are NCHW; ``BasicEncoder`` takes and returns NHWC like its counterpart.
 
 Like the flax modules, every ``forward`` takes a ``train`` flag, which
@@ -57,14 +59,40 @@ class InstanceNorm(nn.InstanceNorm2d):
         return super().forward(x)
 
 
+class NoNorm(nn.Module):
+    """The identity, RAFT-small's context encoder's norm (no parameters)."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return x
+
+
 def make_norm(norm_fn: str, planes: int) -> nn.Module:
-    """The norms of RAFT-large: batch (``cnet``) and instance without
-    affine parameters (``fnet``), eps 1e-5."""
+    """The norms of canonical RAFT: batch (RAFT-large's ``cnet``), instance
+    without affine parameters (both ``fnet``s), eps 1e-5, and "none"
+    (RAFT-small's ``cnet``)."""
     if norm_fn == "batch":
         return BatchNorm(planes, eps=1e-5, momentum=0.1)
     if norm_fn == "instance":
         return InstanceNorm(planes, eps=1e-5, affine=False)
+    if norm_fn == "none":
+        return NoNorm()
     raise ValueError(f"unknown norm_fn {norm_fn!r}")
+
+
+def _refuse_dropout(dropout: float) -> None:
+    if dropout > 0:
+        # JAX: nn.Dropout(broadcast_dims=(1, 2)) after conv2.
+        raise NotImplementedError("encoder dropout is not ported yet")
+
+
+def _encode(encoder: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Stem, the three stages and the 1x1 projection of ``encoder``: NHWC
+    in and out, NCHW inside."""
+    x = x.permute(0, 3, 1, 2).contiguous()
+    x = encoder.relu1(encoder.norm1(encoder.conv1(x), train))
+    for block in (*encoder.layer1, *encoder.layer2, *encoder.layer3):
+        x = block(x, train)
+    return encoder.conv2(x).permute(0, 2, 3, 1).contiguous()
 
 
 class ResidualBlock(nn.Module):
@@ -96,6 +124,36 @@ class ResidualBlock(nn.Module):
         return self.act(x + y)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 to ``planes``, each with norm and ReLU,
+    plus a 1x1 strided shortcut when stride > 1 (RAFT-small's encoders)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str,
+                 stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes // 4, 1)
+        self.conv2 = nn.Conv2d(planes // 4, planes // 4, 3, stride=stride,
+                               padding=1)
+        self.conv3 = nn.Conv2d(planes // 4, planes, 1)
+        self.relu = nn.ReLU(inplace=True)
+        self.norm1 = make_norm(norm_fn, planes // 4)
+        self.norm2 = make_norm(norm_fn, planes // 4)
+        self.norm3 = make_norm(norm_fn, planes)
+        self.downsample = None
+        if stride != 1:
+            self.norm4 = make_norm(norm_fn, planes)
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.relu(self.norm1(self.conv1(x), train))
+        y = self.relu(self.norm2(self.conv2(y), train))
+        y = self.relu(self.norm3(self.conv3(y), train))
+        if self.downsample is not None:
+            x = self.norm4(self.downsample[0](x), train)
+        return self.relu(x + y)
+
+
 class BasicEncoder(nn.Module):
     """Stride-8 encoder: 7x7 stem, stages of 64, 96 and 128 channels, then a
     1x1 projection to ``output_dim``."""
@@ -103,9 +161,7 @@ class BasicEncoder(nn.Module):
     def __init__(self, output_dim: int = 256, norm_fn: str = "batch",
                  dropout: float = 0.0):
         super().__init__()
-        if dropout > 0:
-            # JAX: nn.Dropout(broadcast_dims=(1, 2)) after conv2.
-            raise NotImplementedError("encoder dropout is not ported yet")
+        _refuse_dropout(dropout)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
         self.norm1 = make_norm(norm_fn, 64)
         self.relu1 = nn.ReLU(inplace=True)
@@ -121,8 +177,28 @@ class BasicEncoder(nn.Module):
         """``x`` (B, H, W, 3) -> (B, H/8, W/8, output_dim), both NHWC;
         ``train`` normalises with batch statistics and updates the running
         ones (batch norm only)."""
-        x = x.permute(0, 3, 1, 2).contiguous()
-        x = self.relu1(self.norm1(self.conv1(x), train))
-        for block in (*self.layer1, *self.layer2, *self.layer3):
-            x = block(x, train)
-        return self.conv2(x).permute(0, 2, 3, 1).contiguous()
+        return _encode(self, x, train)
+
+
+class SmallEncoder(nn.Module):
+    """RAFT-small's stride-8 encoder: 7x7 stem to 32 channels, bottleneck
+    stages of 32, 64 and 96, then a 1x1 projection to ``output_dim``."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
+                 dropout: float = 0.0):
+        super().__init__()
+        _refuse_dropout(dropout)
+        self.conv1 = nn.Conv2d(3, 32, 7, stride=2, padding=3)
+        self.norm1 = make_norm(norm_fn, 32)
+        self.relu1 = nn.ReLU(inplace=True)
+        self.layer1 = nn.Sequential(BottleneckBlock(32, 32, norm_fn, 1),
+                                    BottleneckBlock(32, 32, norm_fn, 1))
+        self.layer2 = nn.Sequential(BottleneckBlock(32, 64, norm_fn, 2),
+                                    BottleneckBlock(64, 64, norm_fn, 1))
+        self.layer3 = nn.Sequential(BottleneckBlock(64, 96, norm_fn, 2),
+                                    BottleneckBlock(96, 96, norm_fn, 1))
+        self.conv2 = nn.Conv2d(96, output_dim, 1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``x`` (B, H, W, 3) -> (B, H/8, W/8, output_dim), both NHWC."""
+        return _encode(self, x, train)

@@ -1,6 +1,7 @@
-"""The update block of RAFT-large, the counterpart of
+"""The update blocks of canonical RAFT, the counterpart of
 ``raft_tpu/models/update.py`` (``FlowHead``, ``SepConvGRU``,
-``BasicMotionEncoder``, ``BasicUpdateBlock``).
+``BasicMotionEncoder``, ``BasicUpdateBlock`` of RAFT-large; ``ConvGRU``,
+``SmallMotionEncoder``, ``SmallUpdateBlock`` of RAFT-small).
 
 Every module takes and returns NHWC tensors, as its counterpart does.
 ``BasicMotionEncoder`` and ``SepConvGRU`` hand their weights to
@@ -13,7 +14,8 @@ are rebuilt on the next call (``packed_weights``). The remaining convolutions
 (the flow head outside the step kernel, the mask head) run as
 ``nn.Conv2d`` on an NCHW view of the NHWC memory. Attribute names follow
 the torch state-dict keys (``update_block.gru.convz1``,
-``update_block.mask.0`` ...).
+``update_block.mask.0`` ...). RAFT-small's block has no TPU kernel in the
+reference either: its convolutions are ``nn.Conv2d`` (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -34,6 +36,17 @@ UPDATE_IMPLS = ("step", "chain")
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW module to an NHWC tensor; returns NHWC."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> contiguous NCHW. cuDNN's f32 convolutions are NCHW kernels:
+    handed channels-last views, it converts every operand (15 conversion
+    launches an iteration of RAFT-small's block)."""
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def conv_pairs(*convs: nn.Conv2d) -> tuple:
@@ -94,6 +107,67 @@ class SepConvGRU(nn.Module):
         """``h`` (B, H, W, C) and ``x`` (B, H, W, Cx) or a tuple of parts,
         contiguous NHWC."""
         return gru_cuda.sepconv_gru(h, x, self.convs(), self.packed_weights())
+
+
+class ConvGRU(nn.Module):
+    """3x3 convolutional GRU (RAFT-small). Takes and returns NCHW tensors:
+    ``SmallUpdateBlock`` runs the whole small block in NCHW."""
+
+    def __init__(self, hidden_dim: int = 96, input_dim: int = 146):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        self.convz = nn.Conv2d(cin, hidden_dim, 3, padding=1)
+        self.convr = nn.Conv2d(cin, hidden_dim, 3, padding=1)
+        self.convq = nn.Conv2d(cin, hidden_dim, 3, padding=1)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(self.convz(hx))
+        r = torch.sigmoid(self.convr(hx))
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1 - z) * h + z * q
+
+
+class SmallMotionEncoder(nn.Module):
+    """Correlation + flow -> 82 motion channels ([80 features | flow]);
+    NCHW in and out."""
+
+    def __init__(self, corr_channels: int = 4 * 7 * 7):
+        super().__init__()
+        self.convc1 = nn.Conv2d(corr_channels, 96, 1)
+        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
+        self.convf2 = nn.Conv2d(64, 32, 3, padding=1)
+        self.conv = nn.Conv2d(128, 80, 3, padding=1)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        cor = torch.relu(self.convc1(corr))
+        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
+        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class SmallUpdateBlock(nn.Module):
+    """RAFT-small's iteration: motion encoder -> ConvGRU -> FlowHead, with
+    no mask head (the model upsamples with ``upflow8``)."""
+
+    def __init__(self, hidden_dim: int = 96, input_dim: int = 64,
+                 corr_channels: int = 4 * 7 * 7):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(corr_channels)
+        self.gru = ConvGRU(hidden_dim, input_dim + 82)
+        self.flow_head = FlowHead(hidden_dim, 128)
+
+    def forward(self, net, inp, corr, flow, compute_mask=True,
+                update_impl: str = "step"):
+        """NHWC in and out, as ``BasicUpdateBlock.forward``;
+        ``compute_mask`` and ``update_impl`` are taken and ignored (no mask
+        head, no kernel). Returns ``(net, None, delta_flow)``."""
+        del compute_mask, update_impl
+        flow = nchw(flow)
+        motion = self.encoder(flow, nchw(corr))
+        net = self.gru(nchw(net), torch.cat([nchw(inp), motion], dim=1))
+        delta = self.flow_head.conv2(torch.relu(self.flow_head.conv1(net)))
+        return nhwc(net), None, nhwc(delta)
 
 
 class BasicMotionEncoder(nn.Module):

@@ -12,7 +12,8 @@ CUDA card unless the caller passes ``device="cpu"``, and raises when there
 is neither.
 
 Not ported yet, each refused with ``NotImplementedError`` when asked for:
-the data pipeline and the ``--stage`` CLI (``dataloader=None``),
+RAFT-small (``RAFTConfig(small=True)``), the data pipeline and the
+``--stage`` CLI (``dataloader=None``),
 checkpoints and resume, the preemption guard, the logger's files and
 TensorBoard (``log_dir``), validation in the loop, spatial sharding and the
 other model families (``keypoint_transformer``, ``dual_query``,
@@ -132,7 +133,8 @@ def train(tcfg: TrainConfig,
         "checkpointing (ckpt_dir)": ckpt_dir is not None,
         "async checkpointing": tcfg.async_checkpointing,
         "the training logger (log_dir)": log_dir is not None,
-        "spatial sharding": spatial_shards != 1})
+        "spatial sharding": spatial_shards != 1,
+        "RAFT-small training": getattr(mcfg, "small", False)})
     if update_impl not in UPDATE_IMPLS:
         raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
                          f"got {update_impl!r}")

@@ -52,11 +52,15 @@ def _leaves(tree: Mapping, prefix=()):
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', ['batch_stats']}`` (nested dicts of arrays) -> this
-    port's state dict: conv kernels HWIO -> OIHW, norm ``scale``/``bias`` ->
-    ``weight``/``bias``, batch statistics -> ``running_mean``/
-    ``running_var`` (with ``num_batches_tracked`` = 0), and every ``norm3``
-    entry also under ``downsample.1``, where torch registers it twice."""
+    """JAX ``{'params', ['batch_stats']}`` (nested dicts of arrays) of
+    RAFT-large or RAFT-small -> this port's state dict: conv kernels HWIO
+    -> OIHW, norm ``scale``/``bias`` -> ``weight``/``bias``, batch
+    statistics -> ``running_mean``/``running_var`` (with
+    ``num_batches_tracked`` = 0), and the shortcut's norm of every strided
+    block (``norm3`` of a residual block, ``norm4`` of a bottleneck block)
+    also under ``downsample.1``, where torch registers it twice. The small
+    model's scopes (``ConvGRU``, ``BottleneckBlock``,
+    ``SmallMotionEncoder``) carry their torch names as they are."""
     state: Dict[str, torch.Tensor] = {}
     for path, v in _leaves(variables.get("params", {})):
         scope, leaf = _torch_scope(path[:-1]), path[-1]
@@ -78,10 +82,23 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         state[".".join(scope + [names[leaf]])] = torch.from_numpy(v.copy())
         counter = ".".join(scope + ["num_batches_tracked"])
         state[counter] = torch.tensor(0, dtype=torch.long)
-    for key in [k for k in state if ".norm3." in k]:
-        state[key.replace(".norm3.", ".downsample.1.")] = state[key]
+    _alias_shortcut_norms(state)
     return {k: v.float() if v.is_floating_point() else v
             for k, v in state.items()}
+
+
+def _alias_shortcut_norms(state: Dict[str, torch.Tensor]) -> None:
+    """Enter the shortcut's norm of every strided block also under
+    ``downsample.1``: ``norm3`` of a residual block, ``norm4`` of a
+    bottleneck block (one with a ``conv3``, whose ``norm3`` is on the main
+    branch)."""
+    for key in list(state):
+        m = re.fullmatch(r"(|.*\.)norm([34])\.(\w+)", key)
+        if m is None:
+            continue
+        block, n, leaf = m.groups()
+        if n == ("4" if f"{block}conv3.weight" in state else "3"):
+            state[f"{block}downsample.1.{leaf}"] = state[key]
 
 
 _SPARSE_TABLES = ("row_pos_embed", "col_pos_embed", "lvl_pos_embed",

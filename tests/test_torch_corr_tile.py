@@ -277,7 +277,9 @@ def level0_budget(coords, radius, rescale):
 
 
 # each width, radius and lookup, and both widths and radii in each lookup
-CASES = [(192, 3, True), (256, 4, True), (192, 4, False), (256, 3, False)]
+# (C, r, rescale): RAFT-small's lookup is C=128 at r=3
+CASES = [(192, 3, True), (256, 4, True), (192, 4, False), (256, 3, False),
+         (128, 3, True)]
 IDS = [f"C{c}-r{r}-{'raft' if rs else 'fork'}" for c, r, rs in CASES]
 
 

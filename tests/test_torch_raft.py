@@ -266,12 +266,16 @@ TRAINING_MODULES = ("raft_tpu_torch.train", "raft_tpu_torch.losses",
                     "raft_tpu_torch.models.ours",
                     "raft_tpu_torch.models.sparse_extractor",
                     "raft_tpu_torch.models.deformable",
-                    "raft_tpu_torch.ops.msda", "raft_tpu_torch.ops.msda_cuda")
+                    "raft_tpu_torch.ops.msda", "raft_tpu_torch.ops.msda_cuda",
+                    # the serving surface's
+                    "raft_tpu_torch.utils.warm_start",
+                    "raft_tpu_torch.entry")
 
 
 def test_import_pulls_in_no_jax():
-    """Every module of the port, the training slice's and the sparse
-    family's included, imports without JAX, flax, optax or raft_tpu."""
+    """Every module of the port, the training slice's, the sparse
+    family's and the serving surface's included, imports without JAX,
+    flax, optax or raft_tpu."""
     code = (
         "import importlib, pkgutil, sys, raft_tpu_torch\n"
         "for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "
@@ -292,8 +296,8 @@ def test_iters_and_unported_configs_raise(port_model, frames):
         port_model(_t(frames[0]), _t(frames[1]), iters=0)
     with pytest.raises(ValueError, match="iters"):
         evaluate.FlowPredictor(port_model, iters=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        RAFT(RAFTConfig(small=True))
+    small = RAFT(RAFTConfig(small=True))
+    assert small.update_block.encoder.convc1.in_channels == 4 * 7 * 7
     with pytest.raises(NotImplementedError):
         RAFT(RAFTConfig(mixed_precision=True))
     with pytest.raises(ValueError):

@@ -85,3 +85,16 @@ def test_bound_takes_the_rate_of_the_arithmetic(flops, nbytes, peak, ms, by):
     got_ms, got_by = chip_smoke.bound(flops, nbytes, peak=peak)
     assert got_ms == pytest.approx(ms, rel=1e-4)
     assert got_by == by
+
+
+@pytest.mark.parametrize("row,tol,patience,want", [
+    ([0.2, 0.05, 0.05, 0.2], 0.1, 2, 4),     # converges on the third
+    ([0.2, 0.2, 0.2, 0.2], 0.1, 2, 5),       # never: every iteration
+    ([0.05, 0.2, 0.05, 0.05], 0.1, 2, 5),    # a reset, then the fourth
+    ([0.05, 0.2, 0.2, 0.2], 0.1, 1, 2),      # patience 1: the first
+])
+def test_exit_iters_follows_the_early_exit_rule(row, tol, patience, want):
+    """iters_used from a plain run's update norms (iters = len(row) + 1):
+    consec resets on a norm not below tol, used ticks while not done, done
+    at patience, plus the final mask-computing iteration."""
+    assert chip_smoke.exit_iters([row], tol, patience) == [want]
