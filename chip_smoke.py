@@ -5,9 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's seven CUDA kernels from ``raft_tpu_torch/csrc`` (one
-``nvcc`` each, all at once), holds each kernel against its plain PyTorch
-version at the golden and Sintel feature shapes (the GRU with x whole and
+It builds the port's eight CUDA kernel sources from
+``raft_tpu_torch/csrc`` (one ``nvcc`` each, all at once), holds each
+kernel against its plain PyTorch version at the golden and Sintel feature
+shapes (the GRU with x whole and
 as parts, the step kernel at both depths, the corr backward against
 autograd through the plain lookup) and at the sparse family's shapes (the
 corr forward and backward at its fork lookup, C = 128, 192 and 256 with no
@@ -60,7 +61,21 @@ forward's default slots a group and with its groups forced to one slot
 and to a warp, times them there queued behind a sleep (device time,
 ``ms_q*``), profiles one Sintel pair (RAFT-large and RAFT-small),
 one sparse forward, one RAFT and one sparse train step, and prints one
-JSON line of kernel numbers. The last line is ``{"ok": true, "device":
+JSON line of kernel numbers. RAFT-large inference under the bf16
+mixed-precision policy (phase ``mixed``): the bf16 forms of corr_fwd (on
+the Sintel and chairs shapes, coherent and incoherent flows, each path
+forced, bfloat16 maps and windows and float32 maps with bfloat16 products)
+and update_step (both depths, at the Sintel shape and on the served
+model's own B=2 state) against their plain versions and their SASS for
+bf16 tensor-core MMAs, the step-granular refine in chunks against
+dispatch_batch and a warm frame from encoded maps against the pair call,
+the goldens through two routes (the all-pairs
+pyramid stored in bfloat16, and the bf16 corr form) against
+``assets/golden/cpu_reference.json``'s band, five Sintel pairs served at
+iters=32 with both bf16 forms once an iteration (ms/pair beside the float32
+path's), one pair profiled, and both forms timed (``corr_fwd_bf16`` and
+``update_step_bf16`` rows, the latter beside cuDNN's bf16 convolutions).
+The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
 card it exits non-zero at once.
 """
@@ -145,6 +160,7 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12           # dense bfloat16 on the tensor cores
 CONV_TILE_KERNELS = ("sepconv_gru", "motion_fwd", "update_step")
 # Kernels that multiply in 3xTF32 on the tensor cores: the conv tile's, and
 # the corr kernels on their shared path (csrc/corr_tile.cuh), whose warp
@@ -213,16 +229,25 @@ def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
                                        else "bytes")
 
 
+def _tensor_core_ops(cuobjdump: str, library: str, dtype: str) -> dict:
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for op in re.findall(rf"\b(HG?MMA\.[\w.]*{dtype}[\w.]*)", sass):
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
 def tensor_core_tf32_ops(cuobjdump: str, library: str) -> dict:
     """Counts, by opcode, of the tensor-core MMA instructions with TF32
     operands (HMMA, and Hopper's warpgroup HGMMA) in a built library's
     SASS."""
-    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
-                          text=True, check=True).stdout
-    ops = {}
-    for op in re.findall(r"\b(HG?MMA\.[\w.]*TF32[\w.]*)", sass):
-        ops[op] = ops.get(op, 0) + 1
-    return ops
+    return _tensor_core_ops(cuobjdump, library, "TF32")
+
+
+def tensor_core_bf16_ops(cuobjdump: str, library: str) -> dict:
+    """The same for bfloat16 operands (the bf16 forms)."""
+    return _tensor_core_ops(cuobjdump, library, "BF16")
 
 
 def conv_tile_rates(ms: float, work) -> dict:
@@ -1983,6 +2008,395 @@ def step_phase(torch, pkg, model, frames, counters, err):
     iteration_against_plain(torch, pkg, model, carry, "step table", err)
     return launches
 
+# -- the bf16 mixed-precision policy ----------------------------------------
+
+BF16_EPS = 2.0 ** -7          # bfloat16 epsilon
+# the bf16 corr form against its plain version: TOL of max(1, max|plain|)
+# for float32 windows, BF16_EPS of it for bfloat16 windows (one rounding of
+# values that agree to float32 noise); the bf16 step: 8 BF16_EPS of it for
+# h2, the JAX package's bar for its bf16 paths (tests/test_step_pallas.py),
+# and 8 BF16_EPS of max|plain| for delta, whose updates are far below 1 px
+STEP_BF16_REL = 8 * BF16_EPS
+# the step-granular refine under the policy: MIXED_ITERS iterations in
+# chunks of MIXED_CHUNK against dispatch_batch (bar TOL); a warm frame at
+# the predictor's iters (one image a pass through the encoder, where the
+# pair call's sees two) against the pair call within STEP_BF16_REL of
+# max(1, max|flow|)
+MIXED_ITERS = 8
+MIXED_CHUNK = 4
+# the mixed goldens: the CPU reference's GT EPE within MIXED_BAND (the
+# band assets/golden/cpu_reference.json's _comment sets for chip drift at a
+# matched policy), its parity EPE plus MIXED_BAND at most
+MIXED_BAND = 0.02
+
+
+def bf16_corr_work(torch, f1, pyramid, coords, radius):
+    """corr_work's operations with bfloat16 maps and windows (2 bytes an
+    element)."""
+    flops, _ = corr_work(torch, f1, pyramid, coords, radius)
+    b, h, w, _ = f1.shape
+    outputs = b * h * w * len(pyramid) * (2 * radius + 1) ** 2
+    return flops, (2 * (f1.numel() + sum(f.numel() for f in pyramid))
+                   + 4 * coords.numel() + 2 * outputs)
+
+
+def bf16_step_work(net, inp, corr, flow, packed, convs):
+    """step_work's operations with every activation and weight matrix in
+    bfloat16 (biases float32)."""
+    flops, _ = step_work(net, inp, corr, flow, packed, convs)
+    m = net.shape[0] * net.shape[1] * net.shape[2]
+    weights = [t for group in packed if group is not None for t in group]
+    nbytes = (2 * (net.numel() + inp.numel() + corr.numel() + flow.numel())
+              + sum(t.numel() * t.element_size() for t in weights)
+              + 2 * m * net.shape[-1] + (2 * m * 2 if convs[2] else 0))
+    return flops, nbytes
+
+
+def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
+                       err):
+    """The bf16 form of corr_fwd against its plain version at the Sintel
+    (B=1) and chairs (B=8) lookup shapes, C=256, on coherent and incoherent
+    flows, with each path forced, for bfloat16 and float32 maps and
+    windows: bfloat16 both is the mixed policy's lookup, float32 both
+    corr_mxu_dtype="bfloat16" alone. Updates ``err``."""
+    default = corr_cuda.TILE_BUDGET
+    try:
+        for label, b, h, w, flows in lookup_cases(feat):
+            if label == "golden":
+                continue
+            for flow, max_px in flows.items():
+                f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h,
+                                              w, flow=flow, b=b,
+                                              max_px=max_px)
+                for maps, out in (("bfloat16", "bfloat16"),
+                                  ("float32", "float32")):
+                    dt, odt = getattr(torch, maps), getattr(torch, out)
+                    f1m, pyrm = f1.to(dt), tuple(p.to(dt) for p in pyr)
+                    with torch.inference_mode():
+                        want = corr_cuda.windowed_correlation_fused_plain(
+                            f1m, pyrm, coords, radius, mxu_dtype="bfloat16",
+                            out_dtype=odt).float()
+                    top = float(want.abs().max())
+                    bar = (BF16_EPS if out == "bfloat16" else TOL) * max(
+                        1.0, top)
+                    for path, budget in (("warp", 0),
+                                         ("shared", FORCE_SHARED)):
+                        corr_cuda.TILE_BUDGET = budget
+                        corr_cuda.reset_path_counts()
+                        with torch.inference_mode():
+                            got = corr_cuda.windowed_correlation_bf16_cuda(
+                                f1m, pyrm, coords, radius, out_dtype=odt)
+                        torch.cuda.synchronize()
+                        counts = corr_cuda.path_counts()["fwd"]
+                        d = float((got.float() - want).abs().max())
+                        err["corr_fwd_bf16"] = max(err["corr_fwd_bf16"], d)
+                        print(f"corr_fwd_bf16 {label} B={b} {h}x{w} C=256 "
+                              f"r={radius} {flow}, {maps} maps, {out} "
+                              f"windows, {path} path forced [shared "
+                              f"{100 * shared_share(counts):.1f}%]: "
+                              f"max|kernel - plain| = {d:.3e}, max|plain| "
+                              f"{top:.3g} (bar {bar:.3g})")
+                        if not d <= bar or got.dtype != odt:
+                            fail(f"corr_fwd_bf16 disagrees with its plain "
+                                 f"version at {label} {flow}, {maps} maps, "
+                                 f"{path} path: {d:.3e}")
+                        forced = {"warp": 1, "shared": 0}[path]
+                        if not counts[forced] > counts[1 - forced]:
+                            fail(f"the {path} path was not taken: {counts}")
+    finally:
+        corr_cuda.TILE_BUDGET = default
+
+
+def bf16_step_checks(torch, step_cuda, block, inputs, what, err):
+    """The bf16 form of update_step at both depths against its plain
+    version on bfloat16 ``inputs`` (net, inp, corr, flow); bar STEP_BF16_REL
+    of max(1, max|plain|) for h2 (tanh-bounded, JAX's bar) and of
+    max|plain| for delta (the flow update, far below 1 px). Updates
+    ``err``."""
+    convs = (block.encoder.convs(), block.gru.convs(),
+             block.flow_head.convs())
+    packed = step_cuda.pack_bf16(convs)
+    net = inputs[0]
+    for depth in ("mg", "mgf"):
+        c = convs if depth == "mgf" else convs[:2] + (None,)
+        p = packed if depth == "mgf" else packed[:2] + (None,)
+        with torch.inference_mode():
+            got = step_cuda.fused_step_cuda(*inputs, p)
+            want = step_cuda.fused_step_plain(*inputs, c)
+        torch.cuda.synchronize()
+        if depth == "mg":
+            got, want = (got,), (want,)
+        for part, a, b in zip(("h2", "delta"), got, want):
+            d = float((a.float() - b.float()).abs().max())
+            top = float(b.float().abs().max())
+            bar = STEP_BF16_REL * (max(1.0, top) if part == "h2" else top)
+            err["update_step_bf16"] = max(err["update_step_bf16"], d)
+            print(f"update_step_bf16 '{depth}' {part} on {what} (B="
+                  f"{net.shape[0]} {net.shape[1]}x{net.shape[2]}): "
+                  f"max|kernel - plain| = {d:.3e}, max|plain| {top:.3g} "
+                  f"(bar {bar:.3g})")
+            if not d <= bar or a.dtype != torch.bfloat16:
+                fail(f"update_step_bf16 '{depth}' {part} disagrees with its "
+                     f"plain version on {what}: {d:.3e}")
+
+
+def mixed_goldens(torch, pkg, weights, counters):
+    """RAFT-large under the bf16 policy against the goldens through two
+    routes, the all-pairs pyramid stored in bfloat16 (corr_impl="fixed")
+    and the bf16 corr form (corr_impl="auto"), both with the bf16 step:
+    the GT EPE within MIXED_BAND of the CPU reference's, the parity EPE at
+    most its own plus MIXED_BAND, and every refine iteration through the
+    bf16 forms. Returns {route: results}."""
+    with open(os.path.join(REPO, "assets", "golden",
+                           "cpu_reference.json")) as f:
+        ref = json.load(f)
+    gt_ref = ref["policy_mixed_gt_epe_cpu"]
+    parity_bar = ref["policy_mixed_parity_epe_cpu"] + MIXED_BAND
+    with open(os.path.join(REPO, "assets", "golden", "manifest.json")) as f:
+        pairs = len(json.load(f)["pairs"])
+    out = {}
+    for route, impl, per_pair in (
+            ("all-pairs bf16 storage + update_step_bf16", "fixed",
+             {"update_step_bf16": 12}),
+            ("corr_fwd_bf16 + update_step_bf16", "auto",
+             {"corr_fwd_bf16": 12, "update_step_bf16": 12})):
+        pred = pkg.load_predictor(weights, iters=12, mixed_precision=True,
+                                  corr_impl=impl)
+        reset_counts(counters)
+        res = pkg.validate_golden(pred)
+        launches = read_counts(counters)
+        out[route] = res
+        print(f"golden mixed [{route}]: parity EPE "
+              f"{res['golden_parity_epe']:.4f} (bar {parity_bar:.4f}), GT EPE "
+              f"{res['golden_gt_epe']:.4f} (CPU reference {gt_ref:.4f}, "
+              f"band {MIXED_BAND})")
+        if not res["golden_parity_epe"] <= parity_bar:
+            fail(f"mixed golden parity through {route}")
+        if not abs(res["golden_gt_epe"] - gt_ref) < MIXED_BAND:
+            fail(f"mixed golden GT EPE through {route}")
+        check_launches(launches, pairs, per_pair)
+    return out
+
+
+def mixed_serving_checks(torch, pkg, mixed, carry, ims, counters):
+    """The serving entry points under the policy on the card: the B=2 slot
+    table ``carry`` (step_carry_dispatch of ``ims``) refined in chunks
+    (step_dispatch, step_finalize_dispatch) against dispatch_batch at
+    MIXED_ITERS, and one warm frame (encode_dispatch of each image,
+    refine_dispatch from the maps with a forward_interpolate'd flow_init,
+    at the predictor's iters) against the pair call with that flow_init;
+    both forms once an iteration in each."""
+    im1, im2 = ims
+    k = MIXED_ITERS
+    reset_counts(counters)
+    chunked, rem = mixed.step_dispatch(carry, [k - 1] * len(im1), MIXED_CHUNK)
+    chunked, rem = mixed.step_dispatch(chunked, rem, k - 1 - MIXED_CHUNK)
+    got = mixed.step_finalize_dispatch(chunked)
+    torch.cuda.synchronize()
+    check_launches(read_counts(counters), 1, {"corr_fwd_bf16": k,
+                                              "update_step_bf16": k},
+                   unit="chunked refine")
+    want = mixed.dispatch_batch(im1, im2, iters=k)
+    d = max_diff((a.cpu(), b.cpu()) for a, b in zip(got, want))
+    print(f"mixed step-granular: B={len(im1)} slots, {k - 1} iterations in "
+          f"chunks of {MIXED_CHUNK} and a finalize vs dispatch_batch("
+          f"iters={k}): max|diff| = {d:.3e} px (bar {TOL:g})")
+    if not d <= TOL or got[1].dtype != torch.float32:
+        fail("the mixed step-granular refine disagrees with dispatch_batch")
+    init = pkg.forward_interpolate(want[0][0].cpu().numpy())[None]
+    k = mixed.iters          # the pair call's count
+    reset_counts(counters)
+    fm1, fm2 = (mixed.encode_dispatch(im[:1]) for im in (im1, im2))
+    warm = mixed.refine_dispatch(im1[:1], fm1, fm2, flow_init=init,
+                                 warm=True, iters=k)
+    torch.cuda.synchronize()
+    check_launches(read_counts(counters), 1, {"corr_fwd_bf16": k,
+                                              "update_step_bf16": k},
+                   unit="warm frame")
+    pair = mixed(im1[0], im2[0], flow_init=init[0])
+    d = max_diff((a[0].cpu(), b) for a, b in zip(warm, pair))
+    bar = STEP_BF16_REL * max(1.0, float(np.abs(pair[1]).max()))
+    print(f"mixed warm frame: bfloat16 maps {tuple(fm1.shape)}, refine_dispatch"
+          f"(warm, iters={k}) vs the pair call with the same flow_init: "
+          f"max|diff| = {d:.3e} px (bar {bar:.3g})")
+    if fm1.dtype != torch.bfloat16 or not d <= bar:
+        fail("the mixed warm frame disagrees with the pair call")
+
+
+def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
+                counters, err, f32_times):
+    """RAFT-large inference under the bf16 mixed-precision policy: the bf16
+    forms of corr_fwd and update_step against their plain versions (and on
+    the served model's own B=2 state), the serving entry points
+    (mixed_serving_checks), the goldens through two routes, five
+    Sintel pairs served at iters=32 with both bf16 forms once an iteration
+    (ms/pair beside the float32 path's of this run), one pair profiled, and
+    the two forms timed. Returns the kernels' JSON rows."""
+    cuobjdump = os.path.join(os.path.dirname(pkg.build.nvcc()), "cuobjdump")
+    paths = pkg.build.build(("corr_fwd_bf16", "update_step"))
+    sass = {}
+    for name, lib in (("corr_fwd_bf16", "corr_fwd_bf16"),
+                      ("update_step_bf16", "update_step")):
+        ops = tensor_core_bf16_ops(cuobjdump, paths[lib])
+        sass[name] = sum(ops.values())
+        print(f"  {lib} SASS, tensor-core BF16 MMAs: {ops}")
+        if not ops:
+            fail(f"{lib} has no tensor-core BF16 MMA in its SASS")
+    corr_cuda, step_cuda = pkg.corr_cuda, pkg.step_cuda
+    bf16_lookup_checks(torch, corr_cuda, pkg.corr, pkg.sampling, rng, radius,
+                       feat, err)
+    mixed = pkg.load_predictor(weights, iters=SINTEL_ITERS,
+                               mixed_precision=True)
+    if not mixed.alternate_corr:
+        fail("corr_impl='auto' did not pick the kernel engine on the card")
+    block = mixed.model.update_block
+    h, w = feat["sintel"]
+    bf = torch.bfloat16
+    sintel_inputs = tuple(t.to(bf) for t in update_inputs(torch, rng, h, w))
+    bf16_step_checks(torch, step_cuda, block, sintel_inputs, "Sintel inputs",
+                     err)
+    # the served model's own B=2 state: the corr form at its coords, then
+    # the step on that lookup
+    carry = mixed.step_carry_dispatch(np.stack([frames[1][0], frames[2][0]]),
+                                      np.stack([frames[1][1], frames[2][1]]))
+    with torch.inference_mode():
+        f1, pyr = carry["corr"]
+        coords = carry["coords1"].contiguous()
+        cor = corr_cuda.windowed_correlation_bf16_cuda(f1, pyr, coords, radius,
+                                                       out_dtype=bf)
+        want = corr_cuda.windowed_correlation_fused_plain(
+            f1, pyr, coords, radius, mxu_dtype="bfloat16", out_dtype=bf)
+    d = float((cor.float() - want.float()).abs().max())
+    bar = BF16_EPS * max(1.0, float(want.float().abs().max()))
+    err["corr_fwd_bf16"] = max(err["corr_fwd_bf16"], d)
+    print(f"corr_fwd_bf16 on the served B=2 state: max|kernel - plain| = "
+          f"{d:.3e} (bar {bar:.3g})")
+    if not d <= bar:
+        fail(f"corr_fwd_bf16 disagrees with its plain version on the served "
+             f"state: {d:.3e}")
+    flow = (carry["coords1"] - carry["coords0"]).to(bf).contiguous()
+    bf16_step_checks(torch, step_cuda, block,
+                     (carry["net"], carry["inp"], cor, flow),
+                     "the served state", err)
+    mixed_serving_checks(torch, pkg, mixed, carry, (
+        np.stack([frames[1][0], frames[2][0]]),
+        np.stack([frames[1][1], frames[2][1]])), counters)
+
+    goldens = mixed_goldens(torch, pkg, weights, counters)
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = serve_pairs(torch, mixed, padder, frames, counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    shares = print_path_shares(corr_cuda, f"serve mixed: {SERVE_PAIRS} "
+                               f"Sintel pairs", ("fwd",))
+    ms, f32_ms = statistics.median(times), statistics.median(f32_times)
+    print(f"serve mixed: RAFT-large bf16 policy, {SERVE_PAIRS} Sintel pairs "
+          f"{SINTEL_HW[0]}x{SINTEL_HW[1]}, iters={SINTEL_ITERS}, B=1: median "
+          f"{ms:.2f} ms/pair (all {', '.join(f'{t:.2f}' for t in times)}); "
+          f"float32 path {f32_ms:.2f} ms/pair in this run ({f32_ms / ms:.2f}x)"
+          f"; peak memory {peak_mib:.1f} MiB")
+    check_launches(launches, SERVE_PAIRS, {"corr_fwd_bf16": SINTEL_ITERS,
+                                           "update_step_bf16": SINTEL_ITERS})
+    profile_pair(torch, mixed, *frames[1], label="profile mixed",
+                 per_iteration="update_step_bf16_kernel")
+
+    # the two forms timed on the Sintel shape: the corr form on coherent
+    # and incoherent flows (bfloat16 maps and windows; the row's numbers
+    # are the incoherent input's, as the float32 row's), the step at both
+    # depths beside cuDNN's bf16 convolutions of the same iteration
+    rows = []
+    corr_by = {}
+    for flow_kind in ("incoherent", "coherent"):
+        f1, pyr, coords = corr_inputs(torch, pkg.sampling, pkg.corr, rng, h,
+                                      w, flow=flow_kind)
+        f1, pyr = f1.to(bf), tuple(p.to(bf) for p in pyr)
+        corr_cuda.reset_path_counts()
+        with torch.inference_mode():
+            run = (lambda: corr_cuda.windowed_correlation_bf16_cuda(
+                f1, pyr, coords, radius, out_dtype=bf))
+            run()
+            share = shared_share(corr_cuda.path_counts()["fwd"])
+            work = bf16_corr_work(torch, f1, pyr, coords, radius)
+            bound_ms, bound_by = bound(*work, peak=BF16_FLOPS)
+            corr_by[flow_kind] = {
+                "ms": time_ms(torch, run), "ms_q": queued_ms(torch, run),
+                "plain_ms": time_ms(torch, lambda: (
+                    corr_cuda.windowed_correlation_fused_plain(
+                        f1, pyr, coords, radius, mxu_dtype="bfloat16",
+                        out_dtype=bf)), n=10),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "shared_share": share,
+                "shape": f"B=1 {h}x{w} C=256 L=4 r={radius}, bfloat16 maps "
+                         f"and windows, flows up to "
+                         f"{CORR_FLOWS['sintel'][flow_kind]:g} feature px"}
+    main_row = corr_by["incoherent"]
+    rows.append({
+        "name": "corr_fwd_bf16", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/corr_fwd_bf16.cu",
+        "replaces": "raft_tpu/ops/corr_pallas.py:206", "path": "mixed",
+        "launches": launches["corr_fwd_bf16"],
+        "launches_per_pair": launches["corr_fwd_bf16"] / SERVE_PAIRS,
+        "max_abs_err": err["corr_fwd_bf16"], "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": None,
+        "ms_q": main_row["ms_q"], "shape": main_row["shape"],
+        "by_input": corr_by, "shared_share_serve": shares["fwd"],
+        "sass_bf16_mma": sass["corr_fwd_bf16"]})
+    lib_inputs = tuple(nchw(t) for t in sintel_inputs)
+    step = {}
+    for depth in ("mg", "mgf"):
+        convs = (block.encoder.convs(), block.gru.convs(),
+                 block.flow_head.convs() if depth == "mgf" else None)
+        packed = step_cuda.pack_bf16(convs)
+        bf_convs = [None if group is None else
+                    [(wt.to(bf), b.to(bf)) for wt, b in group]
+                    for group in convs]
+        lib = step_library(torch, bf_convs)
+        with torch.inference_mode():
+            work = bf16_step_work(*sintel_inputs, packed, convs)
+            bound_ms, bound_by = bound(*work, peak=BF16_FLOPS)
+            run = (lambda: step_cuda.fused_step_cuda(*sintel_inputs,
+                                                          packed))
+            kernel_ms = time_ms(torch, run)
+            step[depth] = dict(
+                ms=kernel_ms, ms_q=queued_ms(torch, run),
+                plain_ms=time_ms(torch, lambda: step_cuda.fused_step_plain(
+                    *sintel_inputs, convs), n=10),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=time_ms(torch, lambda: lib(*lib_inputs)),
+                tflops=work[0] / kernel_ms / 1e9)
+    rows.append({
+        "name": "update_step_bf16", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/update_step.cu",
+        "replaces": "raft_tpu/ops/step_pallas.py:127", "path": "mixed",
+        "launches": launches["update_step_bf16"],
+        "launches_per_pair": launches["update_step_bf16"] / SERVE_PAIRS,
+        "max_abs_err": err["update_step_bf16"], **step["mgf"],
+        "depth": "mgf", **{f"{k}_mg": v for k, v in step["mg"].items()},
+        "shape": f"B=1 {h}x{w}, C=128, Cc=324, bfloat16",
+        "sass_bf16_mma": sass["update_step_bf16"]})
+    for r in rows:
+        extra = (f", queued {r['ms_q']:.4f} ms" if "ms_q" in r else "")
+        print(f"{r['name']}: {r['ms']:.4f} ms a launch{extra}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, bf16 tensor cores "
+              f"and HBM), plain {r['plain_ms']:.4f} ms, library "
+              + ("none" if r["library_ms"] is None
+                 else f"{r['library_ms']:.4f} ms (cuDNN bf16)"))
+    mg = step["mg"]
+    print(f"update_step_bf16 'mg': {mg['ms']:.4f} ms a launch, queued "
+          f"{mg['ms_q']:.4f} ms, bound {mg['bound_ms']:.4f} ms, plain "
+          f"{mg['plain_ms']:.4f} ms, library {mg['library_ms']:.4f} ms "
+          f"(cuDNN bf16), {mg['tflops']:.2f} TFLOP/s")
+    for key, row in corr_by.items():
+        print(f"corr_fwd_bf16 sintel {key} ({row['shape']}): {row['ms']:.4f} "
+              f"ms a launch, queued {row['ms_q']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); shared path on "
+              f"{100 * row['shared_share']:.1f}% of blocks; plain "
+              f"{row['plain_ms']:.4f} ms")
+    rows[0]["goldens"] = goldens
+    rows[0]["ms_per_pair_mixed"] = ms
+    rows[0]["ms_per_pair_f32"] = f32_ms
+    return rows
+
 
 def main():
     import torch
@@ -2057,7 +2471,7 @@ def main():
     # -- kernels against their plain versions ------------------------------
     err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
            "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0,
-           "msda_bwd": 0.0}
+           "msda_bwd": 0.0, "corr_fwd_bf16": 0.0, "update_step_bf16": 0.0}
     corr_bwd_rel = msda_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
@@ -2248,6 +2662,8 @@ def main():
     counters = {"corr_fwd": (corr_cuda, "launches"),
                 "corr_bwd": (corr_cuda, "bwd_launches"),
                 "update_step": (step_cuda, "launches"),
+                "corr_fwd_bf16": (corr_cuda, "bf16_launches"),
+                "update_step_bf16": (step_cuda, "bf16_launches"),
                 "motion_fwd": (motion_cuda, "launches"),
                 "sepconv_gru": (gru_cuda, "launches"),
                 "msda_fwd": (msda_cuda, "launches"),
@@ -2290,7 +2706,8 @@ def main():
         SPARSE_GOLDEN=SPARSE_GOLDEN, counters=counters,
         FlowPredictor=FlowPredictor,
         validate_golden_small=validate_golden_small,
-        forward_interpolate=forward_interpolate)
+        forward_interpolate=forward_interpolate, build=build, corr=corr,
+        sampling=sampling, validate_golden=validate_golden)
 
     # -- RAFT-small: goldens, then Sintel-size pairs -----------------------
     t0 = time.perf_counter()
@@ -2331,6 +2748,12 @@ def main():
     table_launches = step_phase(torch, pkg, serve.model, frames, counters,
                                 err)
     phase_seconds("step-granular", t0)
+
+    # -- RAFT-large inference under the bf16 mixed-precision policy ---------
+    t0 = time.perf_counter()
+    mixed_rows = mixed_phase(torch, pkg, weights, padder, frames, rng, feat,
+                             radius, counters, err, times)
+    phase_seconds("mixed", t0)
 
     # -- serve SparseRAFT at full OursConfig widths ------------------------
     sparse_problems = []
@@ -2682,6 +3105,7 @@ def main():
         fail("kernel and plain train steps disagree: " + "; ".join(problems))
     if sparse_problems:
         fail("sparse checks failed: " + "; ".join(sparse_problems))
+    kernels.extend(mixed_rows)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

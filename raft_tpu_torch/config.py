@@ -54,6 +54,30 @@ class RAFTConfig:
         return 128 if self.small else self.feature_dim
 
     @property
+    def compute_dtype(self) -> str:
+        """The encoders' and the update block's dtype: "bfloat16" under
+        the mixed-precision policy, else "float32". Parameters, flow and
+        coordinates stay float32 either way."""
+        return "bfloat16" if self.mixed_precision else "float32"
+
+    def corr_storage(self, inference: bool) -> str:
+        """Storage dtype of the all-pairs pyramid's levels. The volume and
+        its pooling are computed in float32 whatever this says; "auto" is
+        "bfloat16" only under mixed precision in inference."""
+        if self.corr_dtype == "auto":
+            return ("bfloat16" if (self.mixed_precision and inference)
+                    else "float32")
+        return self.corr_dtype
+
+    def corr_mxu(self, inference: bool) -> str:
+        """Operand dtype of the on-demand lookup's products (float32
+        accumulation either way); "auto" follows ``corr_storage``'s rule."""
+        if self.corr_mxu_dtype == "auto":
+            return ("bfloat16" if (self.mixed_precision and inference)
+                    else "float32")
+        return self.corr_mxu_dtype
+
+    @property
     def hdim(self) -> int:
         return 96 if self.small else self.hidden_dim
 

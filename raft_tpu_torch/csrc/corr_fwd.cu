@@ -25,7 +25,9 @@
 //
 // Design: one block per (tile of 8 x 8 queries, level), the scheme of the
 // TPU kernel (a tile of queries times a band of f2 rows in one matmul) on
-// the tensor cores; corr_tile.cuh has the tile, its box and the path rule.
+// the tensor cores; corr_tile.cuh has the tile, its box, the path rule and
+// the kernel's shell (corr_fwd_kernel), which this file fills with the
+// float32 form of the two paths.
 //   Shared path (box <= budget pixels): S = F1_tile (64 x C) . F2_box^T
 //   (C x box), the box in chunks of kNC = 128 pixels, C in stages of kKC =
 //   32 channels through a double-buffered cp.async ring (both operands are
@@ -61,6 +63,9 @@
 //   level) takes the warp path, whose cost does not grow with the box.
 // - Sintel's 55 x 128 queries make only 112 tiles for 132 SMs: the level is
 //   a grid dimension (448 blocks).
+//
+// The bf16 form (mxu_dtype = "bfloat16") is corr_fwd_bf16.cu, on the same
+// shell.
 
 #include <cuda_runtime.h>
 
@@ -70,9 +75,6 @@ namespace {
 
 using namespace corr_tile;
 
-constexpr int kNC = 128;          // box pixels per chunk
-constexpr int kKC = 32;           // channels per pipeline stage
-constexpr int kLdk = kKC + 4;     // row stride of a staged tile: conflict-free fragments
 constexpr int kStageFloats = (kQ + kNC) * kLdk;
 constexpr int kCopies = (kQ + kNC) * (kKC / 4) / kThreads;  // 16-byte copies a thread a stage
 static_assert(kCopies * kThreads == (kQ + kNC) * (kKC / 4), "copies split evenly");
@@ -88,23 +90,6 @@ __device__ __forceinline__ float dot(const float2 a, const float2 b) {
 }
 
 __device__ __forceinline__ float dot(const float a, const float b) { return a * b; }
-
-// The window of query slot qi from its dots (row-major, D per row).
-template <int R>
-__device__ __forceinline__ float window_value(const TileQueries& t, int qi, const float* dots,
-                                              int k) {
-  constexpr int D = 2 * R + 2;
-  constexpr int WIN = 2 * R + 1;
-  const float dx = t.dx[qi], dy = t.dy[qi];
-  const float w00 = (1.f - dx) * (1.f - dy);
-  const float w10 = dx * (1.f - dy);
-  const float w01 = (1.f - dx) * dy;
-  const float w11 = dx * dy;
-  const int i = k / WIN;  // x offset index
-  const int j = k % WIN;  // y offset index
-  return w00 * dots[j * D + i] + w10 * dots[j * D + i + 1] + w01 * dots[(j + 1) * D + i] +
-         w11 * dots[(j + 1) * D + i + 1];
-}
 
 // The shared path: the dots of every query of the tile into S (kQ x D*D).
 template <int R>
@@ -264,105 +249,61 @@ __device__ void warp_queries(const TileQueries& t, const float* __restrict__ fma
   }
 }
 
-template <int R, bool kRescale, int NV, typename Vec, bool kMasked>
-__global__ void __launch_bounds__(kThreads, 2)
-corr_fwd_kernel(const float* __restrict__ fmap1, const Levels lv, const int num_levels,
-                const float* __restrict__ coords, float* __restrict__ out, const int H,
-                const int W, const int channels, const float scale_div, const int budget,
-                Count* __restrict__ path_counts) {
-  constexpr int D = 2 * R + 2;
-  constexpr int WIN = 2 * R + 1;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ TileQueries t;
-  const int C = kMasked ? channels : 32 * NV * (int)(sizeof(Vec) / sizeof(float));
-  const int l = blockIdx.y;
-  const int h2 = lv.h[l], w2 = lv.w[l];
-  load_tile<R, kRescale>(t, coords, H, W, l, h2, w2);
-  int bw;
-  const int nb = box_pixels(t, bw);
-  const float* f2 = lv.ptr[l] + (long long)t.b * h2 * w2 * C;
-  const int out_stride = num_levels * WIN * WIN;
-  if (!choose_path(!kMasked, nb, budget, path_counts)) {
-    warp_queries<R, NV, Vec, kMasked>(t, fmap1, f2, h2, w2, C, smem, out, out_stride,
-                                      l * WIN * WIN, scale_div);
-    return;
+// The float32 form at one width: NV loads of type Vec a lane on the warp
+// path; kMasked, a C under 128 in masked floats, has no shared path.
+template <int NV, typename Vec, bool kMasked>
+struct Float32Form {
+  using T = float;
+  static constexpr bool kTileForm = !kMasked;
+  __device__ __forceinline__ static int channels(int c) {
+    return kMasked ? c : 32 * NV * (int)(sizeof(Vec) / sizeof(float));
   }
-  if constexpr (!kMasked) {
-    float* S = smem;
-    tile_dots<R>(t, fmap1, f2, w2, C, nb, bw, S, smem + kQ * D * D);
-    for (int k = threadIdx.x; k < kQ * WIN * WIN; k += kThreads) {
-      const int qi = k / (WIN * WIN);
-      const long long q = t.q[qi];
-      if (q >= 0) {
-        const int kw = k % (WIN * WIN);
-        out[q * out_stride + l * WIN * WIN + kw] =
-            window_value<R>(t, qi, S + qi * D * D, kw) / scale_div;
-      }
-    }
+  template <int R>
+  static constexpr int smem_bytes() {
+    return kMasked ? kWarps * (2 * R + 2) * (2 * R + 2) * 4
+                   : (kQ * (2 * R + 2) * (2 * R + 2) + 2 * kStageFloats) * 4;
   }
-}
-
-// Dynamic shared memory: the shared path's S and stage ring, or the warp
-// path's dots alone for a C with no tile form.
-template <int R, bool kMasked>
-constexpr int smem_bytes() {
-  return kMasked ? kWarps * (2 * R + 2) * (2 * R + 2) * 4
-                 : (kQ * (2 * R + 2) * (2 * R + 2) + 2 * kStageFloats) * 4;
-}
-
-template <int R, bool kRescale, int NV, typename Vec, bool kMasked>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const float* fmap1, const Levels& lv,
-                   int num_levels, const float* coords, float* out, int H, int W,
-                   int channels, float scale_div, int budget, Count* path_counts) {
-  auto kernel = corr_fwd_kernel<R, kRescale, NV, Vec, kMasked>;
-  constexpr int bytes = smem_bytes<R, kMasked>();
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<grid, kThreads, bytes, stream>>>(fmap1, lv, num_levels, coords, out, H, W, channels,
-                                            scale_div, budget, path_counts);
-  return cudaGetLastError();
-}
+  template <int R>
+  __device__ __forceinline__ static void shared_path(const TileQueries& t,
+                                                     const float* __restrict__ fmap1,
+                                                     const float* __restrict__ f2, int w2, int C,
+                                                     int nb, int bw, float* S, float* stage) {
+    tile_dots<R>(t, fmap1, f2, w2, C, nb, bw, S, stage);
+  }
+  template <int R>
+  __device__ __forceinline__ static void warp_path(const TileQueries& t,
+                                                   const float* __restrict__ fmap1,
+                                                   const float* __restrict__ f2, int h2, int w2,
+                                                   int C, float* dots, float* __restrict__ out,
+                                                   int out_stride, int out_off, float scale_div) {
+    warp_queries<R, NV, Vec, kMasked>(t, fmap1, f2, h2, w2, C, dots, out, out_stride, out_off,
+                                      scale_div);
+  }
+};
 
 // C a multiple of 128: NV = C / 128 float4s a lane; C = 64 or 192: NV = C / 64
 // float2s a lane; another C under 128: NV = ceil(C / 32) masked floats a lane.
-template <int R, bool kRescale>
-cudaError_t launch_width(int channels, dim3 grid, cudaStream_t stream, const float* fmap1,
-                         const Levels& lv, int num_levels, const float* coords, float* out,
-                         int H, int W, float scale_div, int budget, Count* path_counts) {
-#define CORR_LAUNCH(NV, VEC, MASKED)                                                       \
-  launch<R, kRescale, NV, VEC, MASKED>(grid, stream, fmap1, lv, num_levels, coords, out, H, \
-                                       W, channels, scale_div, budget, path_counts)
-  switch (channels) {
-    case 64: return CORR_LAUNCH(1, float2, false);
-    case 128: return CORR_LAUNCH(1, float4, false);
-    case 192: return CORR_LAUNCH(3, float2, false);
-    case 256: return CORR_LAUNCH(2, float4, false);
-    case 384: return CORR_LAUNCH(3, float4, false);
-    case 512: return CORR_LAUNCH(4, float4, false);
-    default: break;
+struct Float32Widths {
+  template <int R, bool kRescale>
+  static cudaError_t launch(const FwdArgs& a) {
+    switch (a.channels) {
+      case 64: return launch_fwd<R, kRescale, Float32Form<1, float2, false>>(a);
+      case 128: return launch_fwd<R, kRescale, Float32Form<1, float4, false>>(a);
+      case 192: return launch_fwd<R, kRescale, Float32Form<3, float2, false>>(a);
+      case 256: return launch_fwd<R, kRescale, Float32Form<2, float4, false>>(a);
+      case 384: return launch_fwd<R, kRescale, Float32Form<3, float4, false>>(a);
+      case 512: return launch_fwd<R, kRescale, Float32Form<4, float4, false>>(a);
+      default: break;
+    }
+    if (a.channels < 1 || a.channels >= 128) return cudaErrorInvalidValue;
+    switch ((a.channels + 31) / 32) {
+      case 1: return launch_fwd<R, kRescale, Float32Form<1, float, true>>(a);
+      case 2: return launch_fwd<R, kRescale, Float32Form<2, float, true>>(a);
+      case 3: return launch_fwd<R, kRescale, Float32Form<3, float, true>>(a);
+      default: return launch_fwd<R, kRescale, Float32Form<4, float, true>>(a);
+    }
   }
-  if (channels < 1 || channels >= 128) return cudaErrorInvalidValue;
-  switch ((channels + 31) / 32) {
-    case 1: return CORR_LAUNCH(1, float, true);
-    case 2: return CORR_LAUNCH(2, float, true);
-    case 3: return CORR_LAUNCH(3, float, true);
-    default: return CORR_LAUNCH(4, float, true);
-  }
-#undef CORR_LAUNCH
-}
-
-template <int R>
-cudaError_t launch_radius(int rescale, int channels, dim3 grid, cudaStream_t stream,
-                          const float* fmap1, const Levels& lv, int num_levels,
-                          const float* coords, float* out, int H, int W, float scale_div,
-                          int budget, Count* path_counts) {
-  return rescale ? launch_width<R, true>(channels, grid, stream, fmap1, lv, num_levels, coords,
-                                         out, H, W, scale_div, budget, path_counts)
-                 : launch_width<R, false>(channels, grid, stream, fmap1, lv, num_levels, coords,
-                                          out, H, W, scale_div, budget, path_counts);
-}
+};
 
 }  // namespace
 
@@ -380,35 +321,10 @@ extern "C" int raft_corr_fwd(const void* fmap1, const void* level0, const void* 
                              int num_levels, const void* coords, void* out, int batch,
                              int height, int width, int channels, int radius, int rescale,
                              float scale_div, int budget, void* path_counts, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || channels < 1 || batch < 0 ||
-      height < 0 || width < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if ((long long)batch * height * width == 0) return 0;
-  Levels lv;
-  const void* ptrs[kMaxLevels] = {level0, level1, level2, level3};
+  const void* levels[kMaxLevels] = {level0, level1, level2, level3};
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
-  for (int l = 0; l < kMaxLevels; ++l) {
-    lv.ptr[l] = static_cast<const float*>(ptrs[l]);
-    lv.h[l] = hs[l];
-    lv.w[l] = ws[l];
-  }
-  const dim3 grid((unsigned)tiles_of(batch, height, width), (unsigned)num_levels);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* f1 = static_cast<const float*>(fmap1);
-  const float* c = static_cast<const float*>(coords);
-  float* o = static_cast<float*>(out);
-  Count* counts = static_cast<Count*>(path_counts);
-  cudaError_t err;
-  if (radius == 4) {
-    err = launch_radius<4>(rescale, channels, grid, s, f1, lv, num_levels, c, o, height, width,
-                           scale_div, budget, counts);
-  } else if (radius == 3) {
-    err = launch_radius<3>(rescale, channels, grid, s, f1, lv, num_levels, c, o, height, width,
-                           scale_div, budget, counts);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return fwd_entry<Float32Widths>(fmap1, levels, hs, ws, num_levels, coords, out, batch, height,
+                                  width, channels, radius, rescale, scale_div, budget,
+                                  path_counts, stream);
 }

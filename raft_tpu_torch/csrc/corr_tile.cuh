@@ -18,6 +18,11 @@
 // query's neighbours itself. Each block adds one to path_counts[0] (shared
 // path) or path_counts[1] (warp path).
 //
+// The forward's kernel, corr_fwd_kernel below, is one shell over two forms
+// of its paths: the float32 form (corr_fwd.cu) and the bf16 form
+// (corr_fwd_bf16.cu), each its own translation unit so that both build at
+// once.
+//
 // Products are mma.sync m16n8k8 in 3xTF32: both operands are activations,
 // split in registers after their shared-memory load (split_tf32 of
 // conv_phase.cuh: hi rounded to TF32, lo the remainder whose top 11 bits the
@@ -27,6 +32,7 @@
 #pragma once
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,6 +135,30 @@ __device__ void load_tile(TileQueries& t, const float* __restrict__ coords, int 
   __syncthreads();
 }
 
+// The forward's shared path (corr_fwd.cu, and its bf16 form in
+// corr_fwd_bf16.cu): the box in chunks of kNC pixels, C in stages of kKC
+// channels, a staged float row kLdk floats apart (conflict-free fragments).
+constexpr int kNC = 128;
+constexpr int kKC = 32;
+constexpr int kLdk = kKC + 4;
+
+// The window of query slot qi from its dots (row-major, D per row).
+template <int R>
+__device__ __forceinline__ float window_value(const TileQueries& t, int qi, const float* dots,
+                                              int k) {
+  constexpr int D = 2 * R + 2;
+  constexpr int WIN = 2 * R + 1;
+  const float dx = t.dx[qi], dy = t.dy[qi];
+  const float w00 = (1.f - dx) * (1.f - dy);
+  const float w10 = dx * (1.f - dy);
+  const float w01 = (1.f - dx) * dy;
+  const float w11 = dx * dy;
+  const int i = k / WIN;  // x offset index
+  const int j = k % WIN;  // y offset index
+  return w00 * dots[j * D + i] + w10 * dots[j * D + i + 1] + w01 * dots[(j + 1) * D + i] +
+         w11 * dots[(j + 1) * D + i + 1];
+}
+
 // Pixels in the box (0 if it is empty) and its width.
 __device__ __forceinline__ int box_pixels(const TileQueries& t, int& bw) {
   bw = t.box[2] - t.box[0] + 1;
@@ -199,6 +229,137 @@ __device__ __forceinline__ void load_b(const float* p, int sk, int sn, int k0, i
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int e = 0; e < 2; ++e) split_tf32(p[(k0 + t + 4 * e) * sk + (n0 + g) * sn], hi[e], lo[e]);
+}
+
+// -- the forward's shell ------------------------------------------------------
+
+// A window stored in float32, or rounded to the nearest bfloat16.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// One block of the forward: the tile and its box at level blockIdx.y, the
+// path, and the shared path's window epilogue. A form of the forward (one
+// struct per maps' type and width) supplies
+//   T                 the maps' type, which is the windows' type too;
+//   kTileForm         whether the width has the shared path;
+//   channels(c)       the width C (a constant where the form fixes it);
+//   smem_bytes<R>()   the dynamic shared memory: S (kQ x (2r+2)^2 floats)
+//                     and the stage ring after it, or the warp path's dots;
+//   shared_path<R>(t, fmap1, f2, w2, C, nb, bw, S, stage): the shared
+//                     path's dots of every query of the tile into S;
+//   warp_path<R>(t, fmap1, f2, h2, w2, C, dots, out, out_stride, out_off,
+//                scale_div): the warp path, its windows written.
+template <int R, bool kRescale, class Form>
+__global__ void __launch_bounds__(kThreads, 2)
+corr_fwd_kernel(const typename Form::T* __restrict__ fmap1, const Levels lv,
+                const int num_levels, const float* __restrict__ coords,
+                typename Form::T* __restrict__ out, const int H, const int W,
+                const int channels, const float scale_div, const int budget,
+                Count* __restrict__ path_counts) {
+  using T = typename Form::T;
+  constexpr int D = 2 * R + 2;
+  constexpr int WIN = 2 * R + 1;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ TileQueries t;
+  const int C = Form::channels(channels);
+  const int l = blockIdx.y;
+  const int h2 = lv.h[l], w2 = lv.w[l];
+  load_tile<R, kRescale>(t, coords, H, W, l, h2, w2);
+  int bw;
+  const int nb = box_pixels(t, bw);
+  const T* f2 = reinterpret_cast<const T*>(lv.ptr[l]) + (long long)t.b * h2 * w2 * C;
+  const int out_stride = num_levels * WIN * WIN;
+  if (!choose_path(Form::kTileForm, nb, budget, path_counts)) {
+    Form::template warp_path<R>(t, fmap1, f2, h2, w2, C, smem, out, out_stride, l * WIN * WIN,
+                                scale_div);
+    return;
+  }
+  if constexpr (Form::kTileForm) {
+    float* S = smem;
+    Form::template shared_path<R>(t, fmap1, f2, w2, C, nb, bw, S,
+                                  reinterpret_cast<T*>(smem + kQ * D * D));
+    for (int k = threadIdx.x; k < kQ * WIN * WIN; k += kThreads) {
+      const int qi = k / (WIN * WIN);
+      const long long q = t.q[qi];
+      if (q >= 0) {
+        const int kw = k % (WIN * WIN);
+        store_out(out + q * out_stride + l * WIN * WIN + kw,
+                  window_value<R>(t, qi, S + qi * D * D, kw) / scale_div);
+      }
+    }
+  }
+}
+
+// A forward launch's arguments, checked by fwd_entry.
+struct FwdArgs {
+  const void* fmap1;
+  Levels lv;
+  int num_levels;
+  const float* coords;
+  void* out;
+  int H, W, channels;
+  float scale_div;
+  int budget;
+  Count* path_counts;
+  dim3 grid;
+  cudaStream_t stream;
+};
+
+template <int R, bool kRescale, class Form>
+cudaError_t launch_fwd(const FwdArgs& a) {
+  using T = typename Form::T;
+  auto kernel = corr_fwd_kernel<R, kRescale, Form>;
+  constexpr int bytes = Form::template smem_bytes<R>();
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<a.grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.fmap1), a.lv, a.num_levels, a.coords, static_cast<T*>(a.out), a.H,
+      a.W, a.channels, a.scale_div, a.budget, a.path_counts);
+  return cudaGetLastError();
+}
+
+// The forward entries' body: checks the arguments and runs
+// Widths::launch<R, kRescale>(args), which picks the form of the width, at
+// radius 4 or 3. Returns a cudaError_t (0 on success).
+template <class Widths>
+int fwd_entry(const void* fmap1, const void* const* levels, const int* hs, const int* ws,
+              int num_levels, const void* coords, void* out, int batch, int height, int width,
+              int channels, int radius, int rescale, float scale_div, int budget,
+              void* path_counts, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || channels < 1 || batch < 0 ||
+      height < 0 || width < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)batch * height * width == 0) return 0;
+  FwdArgs a;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    a.lv.ptr[l] = static_cast<const float*>(levels[l]);
+    a.lv.h[l] = hs[l];
+    a.lv.w[l] = ws[l];
+  }
+  a.fmap1 = fmap1;
+  a.num_levels = num_levels;
+  a.coords = static_cast<const float*>(coords);
+  a.out = out;
+  a.H = height;
+  a.W = width;
+  a.channels = channels;
+  a.scale_div = scale_div;
+  a.budget = budget;
+  a.path_counts = static_cast<Count*>(path_counts);
+  a.grid = dim3((unsigned)tiles_of(batch, height, width), (unsigned)num_levels);
+  a.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (radius == 4) {
+    err = rescale ? Widths::template launch<4, true>(a) : Widths::template launch<4, false>(a);
+  } else if (radius == 3) {
+    err = rescale ? Widths::template launch<3, true>(a) : Widths::template launch<3, false>(a);
+  }
+  return (int)err;
 }
 
 }  // namespace corr_tile

@@ -31,6 +31,15 @@
 // The phases have 660, 440, 220, 440, 220, 440, 220 and 440 tiles of 64 x
 // 64 at Sintel size on 264 co-resident blocks (two a SM), then the
 // warp-per-pixel N = 2 conv.
+//
+// The bf16 form (raft_update_step_bf16) replaces the same TPU kernel at the
+// compute dtype bfloat16 (fused_step(dtype=bfloat16), :503): the same
+// program on the bf16 conv tile (conv_phase.cuh), bfloat16 activations,
+// weights and scratch, each conv's sum rounded to bfloat16 before its
+// bfloat16 bias and the gates and blends rounded where the TPU kernel rounds;
+// h2 and delta come back bfloat16. Bound on an H100 SXM at the Sintel shape:
+// 37.68 GFLOP ('mgf') at 989 TFLOP/s is 0.038 ms, against about 10 MB of
+// compulsory bfloat16 traffic (3 us): bound by tensor-core operations.
 
 #include "conv_phase.cuh"
 
@@ -42,6 +51,67 @@ constexpr int kFlowHead = 256;  // FlowHead hidden width (fits the convc1 buffer
 
 __global__ void __launch_bounds__(kThreads, 2) update_step_kernel(const __grid_constant__ Program p) {
   run_program(p);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    update_step_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
+  run_program(p);
+}
+
+// The program of one iteration in T (float or bf16), launched on `kernel`.
+template <typename T, typename Kernel>
+int update_step(Kernel kernel, const void* net, const void* inp, const void* corr,
+                const void* flow, const void* wc1, const void* bc1, const void* wc2,
+                const void* bc2, const void* wf1, const void* bf1, const void* wf2,
+                const void* bf2, const void* wo, const void* bo, const void* w_zr1,
+                const void* b_zr1, const void* w_q1, const void* b_q1, const void* w_zr2,
+                const void* b_zr2, const void* w_q2, const void* b_q2, const void* wfh1,
+                const void* bfh1, const void* wfh2, const void* bfh2, void* scratch, void* h2,
+                void* delta, int batch, int height, int width, int channels, int inp_channels,
+                int corr_channels, int flow_head, void* stream) {
+  if (channels <= 0 || channels % BN != 0 || inp_channels <= 0 || inp_channels % KC != 0 ||
+      corr_channels <= 0 || corr_channels % 4 != 0 || (flow_head && delta == nullptr) ||
+      !valid_geometry(batch, height, width)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ProgramT<T> p{};
+  p.M = batch * height * width;
+  p.H = height;
+  p.W = width;
+  if (p.M == 0) return 0;
+  const long long M = p.M;
+  T* motion_scratch = static_cast<T*>(scratch);
+  T* motion = motion_scratch + M * kMotionScratch;
+  T* z = motion + M * kMotion;
+  T* rh = z + M * channels;
+  T* h1 = rh + M * channels;
+  const MotionWeightsT<T> mw{static_cast<const T*>(wc1), static_cast<const float*>(bc1),
+                             static_cast<const T*>(wc2), static_cast<const float*>(bc2),
+                             static_cast<const T*>(wf1), static_cast<const float*>(bf1),
+                             static_cast<const T*>(wf2), static_cast<const float*>(bf2),
+                             static_cast<const T*>(wo),  static_cast<const float*>(bo)};
+  add_motion_phases(p, static_cast<const T*>(corr), corr_channels,
+                    static_cast<const T*>(flow), mw, motion_scratch, motion);
+  const T* xs[2] = {static_cast<const T*>(inp), motion};
+  const int cxs[2] = {inp_channels, kMotion};
+  const GruWeightsT<T> gw{static_cast<const T*>(w_zr1), static_cast<const float*>(b_zr1),
+                          static_cast<const T*>(w_q1),  static_cast<const float*>(b_q1),
+                          static_cast<const T*>(w_zr2), static_cast<const float*>(b_zr2),
+                          static_cast<const T*>(w_q2),  static_cast<const float*>(b_q2)};
+  T* out_h = static_cast<T*>(h2);
+  add_gru_phases(p, static_cast<const T*>(net), channels, xs, cxs, 2, gw, z, rh, h1, out_h);
+  if (flow_head) {
+    T* fh = motion_scratch;  // convc1's buffer, dead since phase 2
+    ConvT<T> fh1 = make_conv(3, 3, static_cast<const T*>(wfh1), static_cast<const float*>(bfh1),
+                             kFlowHead, kBiasRelu, fh, kFlowHead, 0);
+    add_part(fh1, static_cast<const T*>(out_h), channels);
+    add_phase(p, fh1);
+    ConvT<T> fh2 = make_conv(3, 3, static_cast<const T*>(wfh2), static_cast<const float*>(bfh2),
+                             2, kBiasWarp, static_cast<T*>(delta), 2, 0);
+    add_part(fh2, static_cast<const T*>(fh), kFlowHead);
+    add_phase(p, fh2);
+  }
+  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -67,47 +137,31 @@ extern "C" int raft_update_step(const void* net, const void* inp, const void* co
                                 void* delta, int batch, int height, int width, int channels,
                                 int inp_channels, int corr_channels, int flow_head,
                                 void* stream) {
-  if (channels <= 0 || channels % BN != 0 || inp_channels <= 0 || inp_channels % KC != 0 ||
-      corr_channels <= 0 || corr_channels % 4 != 0 || (flow_head && delta == nullptr) ||
-      !valid_geometry(batch, height, width)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Program p{};
-  p.M = batch * height * width;
-  p.H = height;
-  p.W = width;
-  if (p.M == 0) return 0;
-  const long long M = p.M;
-  float* motion_scratch = static_cast<float*>(scratch);
-  float* motion = motion_scratch + M * kMotionScratch;
-  float* z = motion + M * kMotion;
-  float* rh = z + M * channels;
-  float* h1 = rh + M * channels;
-  const MotionWeights mw{static_cast<const float*>(wc1), static_cast<const float*>(bc1),
-                         static_cast<const float*>(wc2), static_cast<const float*>(bc2),
-                         static_cast<const float*>(wf1), static_cast<const float*>(bf1),
-                         static_cast<const float*>(wf2), static_cast<const float*>(bf2),
-                         static_cast<const float*>(wo),  static_cast<const float*>(bo)};
-  add_motion_phases(p, static_cast<const float*>(corr), corr_channels,
-                    static_cast<const float*>(flow), mw, motion_scratch, motion);
-  const float* xs[2] = {static_cast<const float*>(inp), motion};
-  const int cxs[2] = {inp_channels, kMotion};
-  const GruWeights gw{static_cast<const float*>(w_zr1), static_cast<const float*>(b_zr1),
-                      static_cast<const float*>(w_q1),  static_cast<const float*>(b_q1),
-                      static_cast<const float*>(w_zr2), static_cast<const float*>(b_zr2),
-                      static_cast<const float*>(w_q2),  static_cast<const float*>(b_q2)};
-  float* out_h = static_cast<float*>(h2);
-  add_gru_phases(p, static_cast<const float*>(net), channels, xs, cxs, 2, gw, z, rh, h1, out_h);
-  if (flow_head) {
-    float* fh = motion_scratch;  // convc1's buffer, dead since phase 2
-    Conv fh1 = make_conv(3, 3, static_cast<const float*>(wfh1), static_cast<const float*>(bfh1),
-                         kFlowHead, kBiasRelu, fh, kFlowHead, 0);
-    add_part(fh1, out_h, channels);
-    add_phase(p, fh1);
-    Conv fh2 = make_conv(3, 3, static_cast<const float*>(wfh2), static_cast<const float*>(bfh2),
-                         2, kBiasWarp, static_cast<float*>(delta), 2, 0);
-    add_part(fh2, fh, kFlowHead);
-    add_phase(p, fh2);
-  }
-  return (int)launch_program(update_step_kernel, p, static_cast<cudaStream_t>(stream));
+  return update_step<float>(update_step_kernel, net, inp, corr, flow, wc1, bc1, wc2, bc2, wf1,
+                            bf1, wf2, bf2, wo, bo, w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2,
+                            b_q2, wfh1, bfh1, wfh2, bfh2, scratch, h2, delta, batch, height,
+                            width, channels, inp_channels, corr_channels, flow_head, stream);
+}
+
+// The bf16 form: the arguments of raft_update_step with the activations,
+// the weight matrices, the scratch (B*H*W*(640 + 128 + 3C) bfloat16s), h2
+// and delta in bfloat16, packed by step_cuda.pack_bf16 (one matrix, no lo
+// part; the flow head's N = 2 one (9*256, 2) bfloat16) and the biases
+// float32 holding bfloat16 values.
+extern "C" int raft_update_step_bf16(const void* net, const void* inp, const void* corr,
+                                     const void* flow, const void* wc1, const void* bc1,
+                                     const void* wc2, const void* bc2, const void* wf1,
+                                     const void* bf1, const void* wf2, const void* bf2,
+                                     const void* wo, const void* bo, const void* w_zr1,
+                                     const void* b_zr1, const void* w_q1, const void* b_q1,
+                                     const void* w_zr2, const void* b_zr2, const void* w_q2,
+                                     const void* b_q2, const void* wfh1, const void* bfh1,
+                                     const void* wfh2, const void* bfh2, void* scratch,
+                                     void* h2, void* delta, int batch, int height, int width,
+                                     int channels, int inp_channels, int corr_channels,
+                                     int flow_head, void* stream) {
+  return update_step<bf16>(update_step_bf16_kernel, net, inp, corr, flow, wc1, bc1, wc2, bc2,
+                           wf1, bf1, wf2, bf2, wo, bo, w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2,
+                           w_q2, b_q2, wfh1, bfh1, wfh2, bfh2, scratch, h2, delta, batch, height,
+                           width, channels, inp_channels, corr_channels, flow_head, stream);
 }

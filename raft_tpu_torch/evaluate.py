@@ -11,7 +11,9 @@ without a card and without that request it raises. On the card, TF32 is
 turned off for convolutions and matmuls so the port computes in float32
 like the reference.
 
-Run the golden checks on the card (add ``--device cpu`` for the CPU):
+Run the golden checks on the card (add ``--device cpu`` for the CPU;
+``--mixed_precision`` runs RAFT-large under the bf16 policy, whose goldens
+sit in the band of ``assets/golden/cpu_reference.json``):
     python -m raft_tpu_torch.evaluate --model assets/golden/weights.npz \
         --dataset golden
     python -m raft_tpu_torch.evaluate --small \
@@ -463,13 +465,19 @@ def load_predictor(model_path: str, iters: int = 32,
                    device=None, update_impl: str = "step",
                    model_family: str = "raft",
                    config: Optional[OursConfig] = None,
-                   seed: int = 0, small: bool = False) -> FlowPredictor:
+                   seed: int = 0, small: bool = False,
+                   mixed_precision: bool = False,
+                   corr_dtype: Optional[str] = None) -> FlowPredictor:
     """A :class:`FlowPredictor` for RAFT-large, or RAFT-small with
     ``small=True``, from torch-named weights: a ``.npz`` archive or a
     reference ``.pth``/``.pt`` checkpoint (``load_torch_state``). An orbax
     run directory of the JAX package is refused: reading it needs JAX.
     ``corr_impl=None`` means ``"auto"``, or ``"fixed"`` when
-    ``alternate_corr`` asks for an engine explicitly.
+    ``alternate_corr`` or ``corr_dtype`` asks for an engine or a storage
+    explicitly. ``mixed_precision`` builds RAFT-large under the bf16 policy
+    and ``corr_dtype`` ("float32", "bfloat16" or "auto") sets the all-pairs
+    pyramid's storage (``RAFTConfig``); both take the same float32
+    weights.
 
     ``model_family="sparse"`` builds ``SparseRAFT(config)`` (default
     ``OursConfig()``) with random weights from ``seed`` for
@@ -480,12 +488,15 @@ def load_predictor(model_path: str, iters: int = 32,
     if model_family not in MODEL_FAMILIES:
         raise ValueError(f"model_family must be one of {MODEL_FAMILIES}, "
                          f"got {model_family!r}")
-    if corr_impl is None and alternate_corr:
+    if corr_impl is None and (alternate_corr or corr_dtype is not None):
         corr_impl = "fixed"
     if model_family == "sparse":
-        if small:
-            raise ValueError("small applies to the canonical RAFT family "
-                             "only")
+        if small or corr_dtype is not None:
+            raise ValueError("small and corr_dtype apply to the canonical "
+                             "RAFT family only")
+        if mixed_precision:
+            raise NotImplementedError("the sparse family's bf16 policy is "
+                                      "not ported yet (ROADMAP.md)")
         if model_path == "random":
             model = SparseRAFT(config or OursConfig())
             model.init_weights(torch.Generator().manual_seed(seed))
@@ -512,7 +523,9 @@ def load_predictor(model_path: str, iters: int = 32,
     else:
         raise ValueError("the port loads torch-named .npz, .pth or .pt "
                          f"weights (got {model_path!r})")
-    model = RAFT(RAFTConfig(small=small, alternate_corr=alternate_corr))
+    model = RAFT(RAFTConfig(small=small, alternate_corr=alternate_corr,
+                            mixed_precision=mixed_precision,
+                            corr_dtype=corr_dtype or "auto"))
     model.load_state_dict(state)
     return FlowPredictor(model, iters=iters, device=device,
                          corr_impl=corr_impl, update_impl=update_impl)
@@ -542,6 +555,13 @@ def main(argv=None) -> Dict[str, float]:
                         choices=list(UPDATE_IMPLS),
                         help="refine iteration: one step-kernel launch "
                              "(default) or the motion then GRU kernels")
+    parser.add_argument("--mixed_precision", action="store_true",
+                        help="RAFT-large under the bf16 policy (bfloat16 "
+                             "encoders, lookup and update block)")
+    parser.add_argument("--corr_dtype", default=None,
+                        choices=["float32", "bfloat16", "auto"],
+                        help="storage dtype of the all-pairs pyramid "
+                             "(pins corr_impl='fixed')")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -561,7 +581,9 @@ def main(argv=None) -> Dict[str, float]:
                                corr_impl=args.corr_impl,
                                device=args.device,
                                update_impl=args.update_impl,
-                               small=args.small)
+                               small=args.small,
+                               mixed_precision=args.mixed_precision,
+                               corr_dtype=args.corr_dtype)
     return run_validation(predictor, [args.dataset])
 
 

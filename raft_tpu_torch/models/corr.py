@@ -14,6 +14,12 @@ moves x, as in the reference's delta grid, so reference weights read the
 channels in the order they were trained on. Level l is sampled around
 ``coords / 2**l``; ``rescale=False`` samples every level around ``coords``,
 the lookup the sparse family was trained with.
+
+Mixed precision (``RAFTConfig.corr_storage``/``corr_mxu``): the all-pairs
+volume and its pooling are always computed in float32 and only stored in
+``storage``; the lookup reads the levels back as float32. The on-demand
+lookup takes bfloat16 feature maps as they come, multiplies in
+``mxu_dtype`` with float32 sums and emits ``out_dtype``.
 """
 
 from __future__ import annotations
@@ -38,14 +44,18 @@ def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                       num_levels: int = 4, scale: bool = True) -> tuple:
+                       num_levels: int = 4, scale: bool = True,
+                       storage: str = "float32") -> tuple:
     """All-pairs volume -> average-pooled pyramid, level l of shape
-    (B*H*W, H/2^l, W/2^l), float32."""
+    (B*H*W, H/2^l, W/2^l), stored in ``storage`` ("float32" or
+    "bfloat16"). Each level is pooled in float32 from the stored one
+    before it, as in the JAX package."""
     B, H, W, _ = fmap1.shape
+    dtype = getattr(torch, storage)
     corr = all_pairs_correlation(fmap1, fmap2, scale).reshape(B * H * W, H, W)
-    pyramid = [corr]
+    pyramid = [corr.to(dtype)]
     for _ in range(num_levels - 1):
-        pyramid.append(avg_pool2x2(pyramid[-1]))
+        pyramid.append(avg_pool2x2(pyramid[-1].float()).to(dtype))
     return tuple(pyramid)
 
 
@@ -69,10 +79,12 @@ class CorrBlock:
     """Materialised all-pairs correlation pyramid with windowed lookup."""
 
     def __init__(self, fmap1, fmap2, num_levels: int = 4, radius: int = 4,
-                 scale: bool = True, rescale: bool = True):
+                 scale: bool = True, rescale: bool = True,
+                 storage: str = "float32"):
         self.radius = radius
         self.rescale = rescale
-        self.pyramid = build_corr_pyramid(fmap1, fmap2, num_levels, scale)
+        self.pyramid = build_corr_pyramid(fmap1, fmap2, num_levels, scale,
+                                          storage)
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         return pyramid_lookup(self.pyramid, coords, self.radius, self.rescale)
@@ -89,13 +101,24 @@ def build_feature_pyramid(fmap2: torch.Tensor, num_levels: int) -> tuple:
 
 def alternate_lookup(fmap1: torch.Tensor, pyramid2, coords: torch.Tensor,
                      radius: int, scale: bool = True,
-                     rescale: bool = True) -> torch.Tensor:
+                     rescale: bool = True, mxu_dtype: str = "float32",
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """On-demand windowed lookup over a pooled feature pyramid; equal to
     ``pyramid_lookup`` over the materialised volume. A CUDA tensor goes to
     the kernel, a CPU tensor to its plain version; a level pooled to zero
-    size gives zero windows either way."""
-    return corr_cuda.windowed_correlation_fused(fmap1, pyramid2, coords,
-                                                radius, scale, rescale)
+    size gives zero windows either way. ``mxu_dtype`` ("float32" or
+    "bfloat16") is the products' operand dtype, ``out_dtype`` the windows'
+    (``corr_cuda.windowed_correlation_bf16``; on the card, the maps').
+    bfloat16 maps take the bf16 path whatever ``mxu_dtype`` says: their
+    products are exact in either form."""
+    if mxu_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"mxu_dtype must be 'float32' or 'bfloat16', got "
+                         f"{mxu_dtype!r}")
+    if mxu_dtype == "bfloat16" or fmap1.dtype == torch.bfloat16:
+        return corr_cuda.windowed_correlation_bf16(
+            fmap1, pyramid2, coords, radius, scale, rescale, out_dtype)
+    return corr_cuda.windowed_correlation_fused(
+        fmap1, pyramid2, coords, radius, scale, rescale).to(out_dtype)
 
 
 class AlternateCorrBlock:

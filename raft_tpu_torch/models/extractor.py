@@ -14,6 +14,12 @@ are NCHW; ``BasicEncoder`` takes and returns NHWC like its counterpart.
 Like the flax modules, every ``forward`` takes a ``train`` flag, which
 selects batch statistics in the batch norms (``BatchNorm``); the module's
 ``training`` attribute plays no part.
+
+The encoders compute in the dtype of their input, as flax's do in their
+``dtype``: a bfloat16 image (the mixed-precision policy) runs every
+convolution in bfloat16 on weights cast from the float32 parameters
+(``conv``), and every norm takes its statistics and normalises in float32
+and returns bfloat16, flax's ``_compute_stats``/``_normalize``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,36 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def cached_weights(module: nn.Module, make, slot: str):
+    """``make(module)``, kept on the module under ``slot`` and remade only
+    when a parameter was replaced or written since the last call (a new
+    state dict, an optimizer step, a move to another device)."""
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    cached = getattr(module, slot, None)
+    if cached is None or cached[0] != key:
+        cached = (key, make(module))
+        setattr(module, slot, cached)
+    return cached[1]
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on ``x`` in ``x``'s dtype: a float32 input runs the module
+    as it is; a bfloat16 one runs as flax's ``Conv`` at ``dtype=bfloat16``
+    over float32 parameters: the convolution of bfloat16 operands (float32
+    sums) rounded to bfloat16, then the bfloat16 bias added in bfloat16. A
+    bias fused into the convolution would be added before the rounding and
+    move many outputs by one ulp. The bfloat16 weight and bias are cast
+    once and cached on the layer (``cached_weights``), detached: the
+    bfloat16 policy runs in inference only."""
+    if x.dtype == layer.weight.dtype:
+        return layer(x)
+    weight, bias = cached_weights(
+        layer, lambda m: (m.weight.detach().to(x.dtype),
+                          m.bias.detach().to(x.dtype)), f"_cast_{x.dtype}")
+    y = F.conv2d(x, weight, None, layer.stride, layer.padding)
+    return y + bias[:, None, None]
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -33,6 +69,8 @@ class BatchNorm(nn.BatchNorm2d):
     N/(N-1) larger. ``num_batches_tracked`` counts the updates."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return self.forward(x.float(), train).to(x.dtype)
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -56,7 +94,7 @@ class InstanceNorm(nn.InstanceNorm2d):
     """Instance norm without affine parameters: the same in training."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
 
 
 class NoNorm(nn.Module):
@@ -89,10 +127,10 @@ def _encode(encoder: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
     """Stem, the three stages and the 1x1 projection of ``encoder``: NHWC
     in and out, NCHW inside."""
     x = x.permute(0, 3, 1, 2).contiguous()
-    x = encoder.relu1(encoder.norm1(encoder.conv1(x), train))
+    x = encoder.relu1(encoder.norm1(conv(encoder.conv1, x), train))
     for block in (*encoder.layer1, *encoder.layer2, *encoder.layer3):
         x = block(x, train)
-    return encoder.conv2(x).permute(0, 2, 3, 1).contiguous()
+    return conv(encoder.conv2, x).permute(0, 2, 3, 1).contiguous()
 
 
 class ResidualBlock(nn.Module):
@@ -117,10 +155,10 @@ class ResidualBlock(nn.Module):
                 nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.act(self.norm1(self.conv1(x), train))
-        y = self.act(self.norm2(self.conv2(y), train))
+        y = self.act(self.norm1(conv(self.conv1, x), train))
+        y = self.act(self.norm2(conv(self.conv2, y), train))
         if self.downsample is not None:
-            x = self.norm3(self.downsample[0](x), train)
+            x = self.norm3(conv(self.downsample[0], x), train)
         return self.act(x + y)
 
 

@@ -21,6 +21,13 @@ radius 3, is the corr kernel. The correlation engine is the materialised
 all-pairs pyramid or the on-demand lookup (``alternate_corr``), whose CUDA
 path is the kernels of ``ops/corr_cuda.py``.
 
+Mixed precision (``RAFTConfig.mixed_precision``, inference only): the
+encoders and the update block compute in bfloat16 with float32 parameters;
+the correlation payload follows ``RAFTConfig.corr_storage`` (the all-pairs
+pyramid's storage) and ``corr_mxu`` (the on-demand lookup's products, which
+emits bfloat16 windows); coordinates, flow and the early exit's norms stay
+float32, and every output comes back float32, as in the JAX package.
+
 Serving: ``early_exit=(tol, patience)`` freezes each sample once its
 low-res update has stayed small; ``encode_features`` and the
 ``fmap1``/``fmap2`` arguments let a stream encode each frame once;
@@ -69,17 +76,20 @@ def _freeze(keep: torch.Tensor, old: torch.Tensor,
 
 
 class RAFT(nn.Module):
-    """RAFT-large or RAFT-small (``config.small``), f32."""
+    """RAFT-large or RAFT-small (``config.small``); float32, or RAFT-large
+    under the bf16 mixed-precision policy (``config.mixed_precision``)."""
 
     def __init__(self, config: RAFTConfig = RAFTConfig()):
         super().__init__()
-        if config.mixed_precision:
+        if config.mixed_precision and config.small:
             raise NotImplementedError(
-                "the bf16 mixed-precision policy is not ported yet")
+                "the bf16 mixed-precision policy for RAFT-small is not "
+                "ported yet")
         if config.normalized_coords:
             raise ValueError("normalized_coords is not supported by the "
                              "canonical RAFT path")
         self.config = config
+        self.compute_dtype = getattr(torch, config.compute_dtype)
         win = 2 * config.radius + 1
         corr_channels = config.corr_levels * win * win
         if config.small:
@@ -104,32 +114,38 @@ class RAFT(nn.Module):
         maps to ``forward``'s ``fmap1``/``fmap2``. Instance norm is per
         sample, so this equals ``forward``'s two-image pass up to float
         summation order."""
-        return self.fnet(normalize_image(image), False)
+        return self.fnet(normalize_image(image, self.compute_dtype), False)
 
     def _prologue(self, image1, image2, fmap1, fmap2, alternate_corr,
-                  norm_train: bool):
+                  norm_train: bool, inference: bool):
         """Encoders, correlation payload and context: ``(payload, net,
         inp, coords0)``. The payload is the all-pairs pyramid, a tuple of
-        levels (B*H8*W8, h, w), or for the on-demand engine ``(fmap1,
-        pooled fmap2 levels)``, as in the JAX package."""
+        levels (B*H8*W8, h, w) stored in ``corr_storage(inference)``, or
+        for the on-demand engine ``(fmap1, pooled fmap2 levels)`` in the
+        compute dtype, as in the JAX package."""
         cfg = self.config
         if (fmap1 is None) != (fmap2 is None):
             raise ValueError("fmap1 and fmap2 must be given together")
         if alternate_corr is None:
             alternate_corr = cfg.alternate_corr
-        image1 = normalize_image(image1)
+        image1 = normalize_image(image1, self.compute_dtype)
         with record_function("raft.encoders"):
             if fmap1 is None:
                 fmap1, fmap2 = self.fnet(
-                    torch.cat([image1, normalize_image(image2)], dim=0),
+                    torch.cat([image1,
+                               normalize_image(image2, self.compute_dtype)]),
                     norm_train).chunk(2)
+            else:
+                fmap1 = fmap1.to(self.compute_dtype)
+                fmap2 = fmap2.to(self.compute_dtype)
             cnet = self.cnet(image1, norm_train)
         if alternate_corr:
             payload = (fmap1.contiguous(),
                        build_feature_pyramid(fmap2, cfg.corr_levels))
         else:
             payload = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels,
-                                         cfg.corr_scale)
+                                         cfg.corr_scale,
+                                         cfg.corr_storage(inference))
         net = torch.tanh(cnet[..., :cfg.hdim]).contiguous()
         inp = torch.relu(cnet[..., cfg.hdim:]).contiguous()
         B, H8, W8, _ = fmap1.shape
@@ -137,22 +153,30 @@ class RAFT(nn.Module):
 
     def _lookup(self, payload, coords: torch.Tensor) -> torch.Tensor:
         """The windowed lookup at ``coords`` through the engine that built
-        ``payload`` (see ``_prologue``)."""
+        ``payload`` (see ``_prologue``), in the compute dtype. The on-demand
+        lookup multiplies in ``corr_mxu(inference=True)``: a forward that
+        trains refuses bf16 products (``forward``), so no training run
+        reaches the rule's other branch."""
         cfg = self.config
         if len(payload) == 2 and isinstance(payload[1], tuple):
             return alternate_lookup(payload[0], payload[1],
                                     coords.contiguous(), cfg.radius,
-                                    cfg.corr_scale)
-        return pyramid_lookup(payload, coords, cfg.radius)
+                                    cfg.corr_scale,
+                                    mxu_dtype=cfg.corr_mxu(inference=True),
+                                    out_dtype=self.compute_dtype)
+        return pyramid_lookup(payload, coords,
+                              cfg.radius).to(self.compute_dtype)
 
     def _iteration(self, payload, net, inp, coords0, coords1, last: bool,
                    update_impl: str):
         """One refinement iteration: ``(net, mask or None, delta_flow)``;
-        the mask head runs only when ``last``."""
-        return self.update_block(net, inp, self._lookup(payload, coords1),
-                                 coords1 - coords0,
-                                 compute_mask=True if last else None,
-                                 update_impl=update_impl)
+        the mask head runs only when ``last``. The update block takes the
+        flow in the compute dtype; the mask and delta come back float32."""
+        net, mask, delta = self.update_block(
+            net, inp, self._lookup(payload, coords1),
+            (coords1 - coords0).to(self.compute_dtype),
+            compute_mask=True if last else None, update_impl=update_impl)
+        return net, None if mask is None else mask.float(), delta.float()
 
     # -- the whole forward ------------------------------------------------
 
@@ -192,9 +216,13 @@ class RAFT(nn.Module):
             raise ValueError(f"iters must be >= 1, got {iters}")
         if early_exit is not None and train:
             raise ValueError("early_exit is a test-mode-only knob")
+        if train and (cfg.mixed_precision or cfg.corr_mxu_dtype == "bfloat16"):
+            raise NotImplementedError(
+                "bf16 training (mixed_precision or corr_mxu_dtype='bfloat16') "
+                "is not ported yet: it needs the bf16 backward kernels")
         payload, net, inp, coords0 = self._prologue(
             image1, image2, fmap1, fmap2, alternate_corr,
-            train and not freeze_bn)
+            train and not freeze_bn, not train)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
 
         if train:
@@ -251,7 +279,7 @@ class RAFT(nn.Module):
         ``corr`` (the engine's payload, see ``_prologue``), and the
         per-slot early-exit state ``consec``, ``done``, ``used`` (zeros)."""
         payload, net, inp, coords0 = self._prologue(
-            image1, image2, fmap1, fmap2, alternate_corr, False)
+            image1, image2, fmap1, fmap2, alternate_corr, False, True)
         B = net.shape[0]
         zeros = torch.zeros(B, dtype=torch.int32, device=net.device)
         return {"net": net, "inp": inp, "coords0": coords0,

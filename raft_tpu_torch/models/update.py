@@ -16,6 +16,11 @@ are rebuilt on the next call (``packed_weights``). The remaining convolutions
 the torch state-dict keys (``update_block.gru.convz1``,
 ``update_block.mask.0`` ...). RAFT-small's block has no TPU kernel in the
 reference either: its convolutions are ``nn.Conv2d`` (cuDNN on the card).
+
+``BasicUpdateBlock`` computes in the dtype of ``net``: bfloat16 under the
+mixed-precision policy, through the step kernel's bf16 form and bfloat16
+heads on cuDNN (``extractor.conv``), with float32 parameters. The chain's
+kernels have no bf16 form yet, so ``update_impl="chain"`` refuses it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from raft_tpu_torch.models.extractor import cached_weights, conv
 from raft_tpu_torch.ops import gru_cuda, motion_cuda, step_cuda
 
 # Convex-upsampling mask channels: 9 neighbours x (8x8) sub-pixels.
@@ -33,9 +39,10 @@ UPSAMPLE_MASK_CHANNELS = 9 * 8 * 8
 UPDATE_IMPLS = ("step", "chain")
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW module to an NHWC tensor; returns NHWC."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def conv_nhwc(layer, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NCHW function of one tensor to an NHWC tensor; returns
+    NHWC."""
+    return layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -53,15 +60,12 @@ def conv_pairs(*convs: nn.Conv2d) -> tuple:
     return tuple((c.weight, c.bias) for c in convs)
 
 
-def packed_weights(module: nn.Module, pack) -> tuple:
+def packed_weights(module: nn.Module, pack, slot: str = "_packed") -> tuple:
     """``pack(module.convs())``, the layout a kernel reads, kept on the
-    module and repacked only when a parameter was replaced or written since
-    the last call (a new state dict, a move to another device)."""
-    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
-    cached = getattr(module, "_packed", None)
-    if cached is None or cached[0] != key:
-        cached = module._packed = (key, pack(module.convs()))
-    return cached[1]
+    module under ``slot`` (one slot a layout) and repacked only when a
+    parameter was replaced or written since the last call (a new state
+    dict, a move to another device): ``extractor.cached_weights``."""
+    return cached_weights(module, lambda m: pack(m.convs()), slot)
 
 
 class FlowHead(nn.Module):
@@ -79,8 +83,14 @@ class FlowHead(nn.Module):
     def packed_weights(self) -> tuple:
         return packed_weights(self, step_cuda.pack_flow_head)
 
+    def packed_weights_bf16(self) -> tuple:
+        return packed_weights(self, step_cuda.pack_flow_head_bf16,
+                              "_packed_bf16")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nhwc(lambda t: self.conv2(self.relu(self.conv1(t))), x)
+        """NHWC in and out, in ``x``'s dtype."""
+        return conv_nhwc(lambda t: conv(self.conv2,
+                                        self.relu(conv(self.conv1, t))), x)
 
 
 class SepConvGRU(nn.Module):
@@ -102,6 +112,10 @@ class SepConvGRU(nn.Module):
 
     def packed_weights(self) -> tuple:
         return packed_weights(self, gru_cuda.pack_weights)
+
+    def packed_weights_bf16(self) -> tuple:
+        return packed_weights(self, gru_cuda.pack_weights_bf16,
+                              "_packed_bf16")
 
     def forward(self, h: torch.Tensor, x) -> torch.Tensor:
         """``h`` (B, H, W, C) and ``x`` (B, H, W, Cx) or a tuple of parts,
@@ -188,6 +202,10 @@ class BasicMotionEncoder(nn.Module):
     def packed_weights(self) -> tuple:
         return packed_weights(self, motion_cuda.pack_weights)
 
+    def packed_weights_bf16(self) -> tuple:
+        return packed_weights(self, motion_cuda.pack_weights_bf16,
+                              "_packed_bf16")
+
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
         return motion_cuda.motion_encoder(flow.contiguous(), corr.contiguous(),
                                           self.convs(), self.packed_weights())
@@ -216,16 +234,24 @@ class BasicUpdateBlock(nn.Module):
         ``"step"`` runs one step kernel (with the flow head inside it when
         the mask head is skipped, ``step_cuda.plan_fusion``); ``"chain"``
         runs the motion kernel, then the GRU kernel with x = (inp,
-        motion). Returns ``(net, mask or None, delta_flow)``."""
+        motion). Returns ``(net, mask or None, delta_flow)``, in ``net``'s
+        dtype (float32, or bfloat16 under mixed precision: the other
+        inputs then in bfloat16 too)."""
         net, inp = net.contiguous(), inp.contiguous()
+        bf16 = net.dtype == torch.bfloat16
+        if update_impl == "chain" and bf16:
+            raise NotImplementedError(
+                "update_impl='chain' has no bf16 form: the bf16 chain kernels "
+                "(motion_fwd and sepconv_gru in bfloat16) are not ported yet; "
+                "use update_impl='step'")
         if update_impl == "step":
             with_head = step_cuda.plan_fusion(compute_mask is None) == "mgf"
-            convs = [self.encoder.convs(), self.gru.convs(), None]
-            packed = [self.encoder.packed_weights(),
-                      self.gru.packed_weights(), None]
+            modules = [self.encoder, self.gru, None]
             if with_head:
-                convs[2] = self.flow_head.convs()
-                packed[2] = self.flow_head.packed_weights()
+                modules[2] = self.flow_head
+            convs = [None if m is None else m.convs() for m in modules]
+            packed = [None if m is None else m.packed_weights_bf16() if bf16
+                      else m.packed_weights() for m in modules]
             out = step_cuda.fused_step(net, inp, corr.contiguous(),
                                        flow.contiguous(), convs, packed)
             if with_head:
@@ -241,5 +267,7 @@ class BasicUpdateBlock(nn.Module):
         if compute_mask is None:
             return net, None, delta_flow
         # 0.25 balances gradients into the mask head (reference update.py).
-        mask = 0.25 * conv_nhwc(self.mask, net)
+        mask = 0.25 * conv_nhwc(
+            lambda t: conv(self.mask[2], self.mask[1](conv(self.mask[0], t))),
+            net)
         return net, mask, delta_flow

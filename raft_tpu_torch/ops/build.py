@@ -24,8 +24,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
-KERNELS = ("corr_fwd", "corr_bwd", "sepconv_gru", "motion_fwd",
-           "update_step", "msda_fwd", "msda_bwd")
+KERNELS = ("corr_fwd", "corr_fwd_bf16", "corr_bwd", "sepconv_gru",
+           "motion_fwd", "update_step", "msda_fwd", "msda_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -117,16 +117,18 @@ def bind(name: str, symbol: str, argtypes):
         return fn
 
 
-def check_operand(name: str, t, shape, device) -> None:
-    """Raise ``ValueError`` unless ``t`` is a float32 tensor of ``shape``,
-    contiguous, 16-byte aligned (the kernels load float4s) and on
-    ``device``."""
+def check_operand(name: str, t, shape, device, dtype=None) -> None:
+    """Raise ``ValueError`` unless ``t`` is a tensor of ``dtype`` (float32
+    unless given: only the bf16 forms pass ``torch.bfloat16``) and
+    ``shape``, contiguous, 16-byte aligned (the kernels load 16 bytes at a
+    time) and on ``device``."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

@@ -17,6 +17,11 @@ one warp per pixel in f32 on its two columns as they are, keeps one
 
 The tests replay the kernel's arithmetic on these matrices
 (``tests/torch_conv_replay.py``, ``tests/test_torch_conv_tile.py``).
+
+The tile's bf16 form (the mixed-precision policy) takes the same matrix
+once, rounded to bfloat16 (``pack_conv_bf16``), with the bias as float32
+values rounded to bfloat16. ``conv2d`` is a convolution as the kernels
+compute it, in float32 or in bfloat16: the plain versions use it.
 """
 
 from __future__ import annotations
@@ -53,21 +58,58 @@ def split_tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_rna(x - hi)])
 
 
-def pack_conv(weight: torch.Tensor, bias: torch.Tensor) -> tuple:
-    """``(w, b (ldw))``, float32 and contiguous, for a convolution of one
-    input part (several parts whose widths are multiples of ``KC`` pack
-    the same way, as one): ``w`` is ``(2, ldw, rows)``, hi and lo of the
-    transposed matrix, or ``(rows, 2)`` for an N = 2 convolution."""
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           padding=0) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` in its dtype. float32: as it is.
+    bfloat16 (the JAX kernels' compute dtype): the float32 convolution of
+    ``x`` with the weight rounded to bfloat16, its sum rounded to bfloat16,
+    then the bfloat16 bias added in bfloat16, the flax ``Conv`` contract at
+    ``dtype=bfloat16``."""
+    if x.dtype == torch.float32:
+        return F.conv2d(x, weight, bias, padding=padding)
+    y = F.conv2d(x.float(), weight.to(x.dtype).float(), padding=padding)
+    return y.to(x.dtype) + bias.to(x.dtype)[:, None, None]
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even), kept in float32."""
+    return x.detach().float().to(torch.bfloat16).float()
+
+
+def _matrix(weight: torch.Tensor) -> torch.Tensor:
+    """The packed K x N float32 matrix of ``weight`` (N, Cin, ky, kx)."""
     n, cin, ky, kx = weight.shape
     taps = ky * kx
     rows = weight.detach().float().reshape(n, cin, taps).permute(2, 1, 0)
     if cin != 2:
         rows = F.pad(rows, (0, 0, 0, round_up(cin, KC) - cin))
     rows = rows.reshape(-1, n)
-    rows = F.pad(rows, (0, 0, 0, packed_rows(cin, taps) - rows.shape[0]))
+    return F.pad(rows, (0, 0, 0, packed_rows(cin, taps) - rows.shape[0]))
+
+
+def pack_conv(weight: torch.Tensor, bias: torch.Tensor) -> tuple:
+    """``(w, b (ldw))``, float32 and contiguous, for a convolution of one
+    input part (several parts whose widths are multiples of ``KC`` pack
+    the same way, as one): ``w`` is ``(2, ldw, rows)``, hi and lo of the
+    transposed matrix, or ``(rows, 2)`` for an N = 2 convolution."""
+    n = weight.shape[0]
+    rows = _matrix(weight)
     bias = bias.detach().float()
     if n == 2:
         return rows.contiguous(), bias.contiguous()
     ldw = round_up(n, BN)
     return (split_tf32(F.pad(rows, (0, ldw - n)).t()).contiguous(),
             F.pad(bias, (0, ldw - n)).contiguous())
+
+
+def pack_conv_bf16(weight: torch.Tensor, bias: torch.Tensor) -> tuple:
+    """``pack_conv``'s layout for the bf16 form: ``w`` is one bfloat16
+    ``(ldw, rows)`` matrix (no lo part), or ``(rows, 2)`` for an N = 2
+    convolution; ``b`` is float32 holding bfloat16 values."""
+    n = weight.shape[0]
+    rows = _matrix(weight)
+    if n == 2:
+        return rows.to(torch.bfloat16).contiguous(), round_bf16(bias)
+    ldw = round_up(n, BN)
+    return (F.pad(rows, (0, ldw - n)).t().to(torch.bfloat16).contiguous(),
+            round_bf16(F.pad(bias.detach(), (0, ldw - n))).contiguous())

@@ -25,6 +25,16 @@ the block multiplies the tile by the box on the tensor cores (the shared
 path); otherwise it runs one warp per query (the warp path).
 ``path_counts`` reads how many blocks took each path since
 ``reset_path_counts``.
+
+The forward's bf16 form (``windowed_correlation_bf16_cuda``, the TPU
+kernel's ``mxu_dtype="bfloat16"``) takes float32 or bfloat16 feature maps,
+multiplies bfloat16 operands with float32 sums (a float32 map is rounded
+to bfloat16 in the kernel; a bfloat16 one is taken as it is, with either
+``mxu_dtype``, since its products are exact in either form) and emits the
+windows in the maps' dtype, as the port's lookup asks for them. Its plain
+version is ``windowed_correlation_fused_plain`` with the same dtypes. It
+runs in inference only (the backward stays float32) and counts its
+launches in ``bf16_launches``.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from raft_tpu_torch.ops.sampling import bilinear_sampler
 
 launches = 0          # forward kernel launches (windowed_correlation_cuda)
 bwd_launches = 0      # backward kernel launches (windowed_correlation_bwd_cuda)
+bf16_launches = 0     # bf16-form launches (windowed_correlation_bf16_cuda)
 MAX_LEVELS = 4
 CHANNELS = (128, 192, 256, 384, 512)   # and any C under 128
 # The largest box (pixels of one level) a tile takes the shared path with,
@@ -78,11 +89,19 @@ def windowed_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 def windowed_correlation_fused_plain(fmap1, pyramid2, coords, radius: int,
                                      scale: bool = True,
-                                     rescale: bool = True) -> torch.Tensor:
+                                     rescale: bool = True,
+                                     mxu_dtype: str = "float32",
+                                     out_dtype: torch.dtype = torch.float32
+                                     ) -> torch.Tensor:
     """All levels of the lookup, looped in plain PyTorch: level l samples at
     ``coords / 2**l`` (at ``coords`` with ``rescale=False``); a level pooled
-    to zero size gives zero windows. Returns (B, H, W, L*(2r+1)^2)
-    float32."""
+    to zero size gives zero windows. Returns (B, H, W, L*(2r+1)^2) in
+    ``out_dtype``. ``mxu_dtype="bfloat16"`` rounds the feature maps to
+    bfloat16 first; the sums are float32 either way, so this is the bf16
+    form's plain version."""
+    if mxu_dtype == "bfloat16":
+        fmap1 = fmap1.to(torch.bfloat16)
+        pyramid2 = [f2.to(torch.bfloat16) for f2 in pyramid2]
     win = 2 * radius + 1
     out = []
     for lvl, f2 in enumerate(pyramid2):
@@ -93,7 +112,7 @@ def windowed_correlation_fused_plain(fmap1, pyramid2, coords, radius: int,
         lvl_coords = coords / (2 ** lvl) if rescale else coords
         out.append(windowed_correlation(fmap1, f2, lvl_coords, radius,
                                         scale))
-    return torch.cat(out, dim=-1)
+    return torch.cat(out, dim=-1).to(out_dtype)
 
 
 def windowed_correlation_bwd_plain(fmap1, pyramid2, coords, grad,
@@ -144,10 +163,11 @@ def path_counts() -> dict:
     return {"fwd": tuple(total[:2]), "bwd": tuple(total[2:])}
 
 
-def _check_lookup(fmap1, pyramid2, coords, radius: int) -> list:
+def _check_lookup(fmap1, pyramid2, coords, radius: int,
+                  dtype=torch.float32) -> list:
     """Raise unless the kernels take these operands: C in ``CHANNELS`` or
-    under 128. Returns the levels' (h, w) pairs padded with zeros to
-    ``MAX_LEVELS``."""
+    under 128, the maps in ``dtype``. Returns the levels' (h, w) pairs
+    padded with zeros to ``MAX_LEVELS``."""
     if fmap1.device.type != "cuda":
         raise ValueError(f"the corr kernels need CUDA tensors, got "
                          f"{fmap1.device}")
@@ -161,12 +181,12 @@ def _check_lookup(fmap1, pyramid2, coords, radius: int) -> list:
     if radius not in (3, 4):
         raise ValueError(f"radius must be 3 or 4, got {radius}")
     dev = fmap1.device
-    check_operand("fmap1", fmap1, (B, H, W, C), dev)
+    check_operand("fmap1", fmap1, (B, H, W, C), dev, dtype)
     check_operand("coords", coords, (B, H, W, 2), dev)
     dims = []
     for lvl, f2 in enumerate(pyramid2):
         check_operand(f"level {lvl}", f2, (B, f2.shape[1], f2.shape[2], C),
-                      dev)
+                      dev, dtype)
         dims += [f2.shape[1], f2.shape[2]]
     return dims + [0, 0] * (MAX_LEVELS - L)
 
@@ -209,6 +229,58 @@ def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
     if err:
         raise RuntimeError(f"corr_fwd kernel failed: cudaError {err}")
     launches += 1
+    return out
+
+
+# the bf16 form: the forward's arguments, then in_bf16
+_BF16_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int] + _ARGTYPES[-2:]
+BF16_CHANNELS = (128, 256)   # RAFT-small's and RAFT-large's feature widths
+
+
+def windowed_correlation_bf16_cuda(fmap1, pyramid2, coords, radius: int,
+                                   scale: bool = True, rescale: bool = True,
+                                   out_dtype: torch.dtype = torch.float32
+                                   ) -> torch.Tensor:
+    """Launch the bf16 form, ``csrc/corr_fwd_bf16.cu``, on the current
+    stream: bfloat16 products (m16n8k16 tensor-core MMAs on the shared
+    path) with float32 sums, the windows emitted in ``out_dtype``.
+
+    ``fmap1`` and the levels all float32 (rounded to bfloat16 in the
+    kernel) or all bfloat16; ``out_dtype`` the maps' dtype; C in
+    ``BF16_CHANNELS``; the rest as ``windowed_correlation_cuda``. Forward
+    only: it refuses inputs that need a gradient.
+    """
+    global bf16_launches
+    in_bf16 = fmap1.dtype == torch.bfloat16
+    if out_dtype != fmap1.dtype:
+        raise ValueError(f"the bf16 form emits its windows in the maps' "
+                         f"dtype {fmap1.dtype}, got out_dtype {out_dtype}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (fmap1, *pyramid2)):
+        raise NotImplementedError("the bf16 corr backward is not ported; "
+                                  "the bf16 form runs in inference only")
+    if fmap1.shape[-1] not in BF16_CHANNELS:
+        raise ValueError(f"the bf16 form takes C in {BF16_CHANNELS}, got "
+                         f"{fmap1.shape[-1]}")
+    dims = _check_lookup(fmap1, pyramid2, coords, radius,
+                         torch.bfloat16 if in_bf16 else torch.float32)
+    B, H, W, C = fmap1.shape
+    dev = fmap1.device
+    win = 2 * radius + 1
+    out = torch.empty(B, H, W, len(pyramid2) * win * win, device=dev,
+                      dtype=out_dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = _counts(dev)
+    with torch.cuda.device(dev):
+        err = build.bind("corr_fwd_bf16", "raft_corr_fwd_bf16",
+                         _BF16_ARGTYPES)(
+            fmap1.data_ptr(), *[f.data_ptr() for f in _padded(pyramid2)],
+            *dims, len(pyramid2), coords.data_ptr(), out.data_ptr(), B,
+            H, W, C, radius, int(rescale), _scale_div(C, scale), TILE_BUDGET,
+            int(in_bf16), counts.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"corr_fwd bf16 kernel failed: cudaError {err}")
+    bf16_launches += 1
     return out
 
 
@@ -284,3 +356,20 @@ def windowed_correlation_fused(fmap1, pyramid2, coords, radius: int,
                                                 radius, scale, rescale)
     return WindowedCorrelationFn.apply(fmap1, coords, radius, scale, rescale,
                                        *pyramid2)
+
+
+def windowed_correlation_bf16(fmap1, pyramid2, coords, radius: int,
+                              scale: bool = True, rescale: bool = True,
+                              out_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """All pyramid levels of the on-demand lookup with bfloat16 products:
+    the plain version (``mxu_dtype="bfloat16"``) for a CPU tensor, the bf16
+    form (``windowed_correlation_bf16_cuda``) for a CUDA tensor; the
+    windows in ``out_dtype``, on the card the maps' dtype. Inference only
+    on the card."""
+    if fmap1.device.type == "cpu":
+        return windowed_correlation_fused_plain(fmap1, pyramid2, coords,
+                                                radius, scale, rescale,
+                                                "bfloat16", out_dtype)
+    return windowed_correlation_bf16_cuda(fmap1, pyramid2, coords, radius,
+                                          scale, rescale, out_dtype)

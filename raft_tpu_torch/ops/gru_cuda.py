@@ -26,11 +26,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
-from raft_tpu_torch.ops.conv_pack import split_tf32
+from raft_tpu_torch.ops.conv_pack import conv2d, round_bf16, split_tf32
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # cells computed by the CUDA kernel
@@ -38,11 +37,14 @@ TAPS = 5
 
 
 def _step_plain(h, x, conv_z, conv_r, conv_q, padding):
+    """One GRU step; in bfloat16 for bfloat16 inputs, each operation then
+    rounding its result to bfloat16 as the JAX kernels' compute dtype
+    does."""
     hx = torch.cat([h, x], dim=1)
-    z = torch.sigmoid(F.conv2d(hx, *conv_z, padding=padding))
-    r = torch.sigmoid(F.conv2d(hx, *conv_r, padding=padding))
-    q = torch.tanh(F.conv2d(torch.cat([r * h, x], dim=1), *conv_q,
-                            padding=padding))
+    z = torch.sigmoid(conv2d(hx, *conv_z, padding=padding))
+    r = torch.sigmoid(conv2d(hx, *conv_r, padding=padding))
+    q = torch.tanh(conv2d(torch.cat([r * h, x], dim=1), *conv_q,
+                          padding=padding))
     return (1 - z) * h + z * q
 
 
@@ -51,7 +53,9 @@ def _parts(x) -> tuple:
 
 
 def sepconv_gru_plain(h: torch.Tensor, x, convs) -> torch.Tensor:
-    """The cell with ``F.conv2d``, NHWC in and out; x parts are
+    """The cell with ``F.conv2d`` (``conv_pack.conv2d``: in float32, or in
+    bfloat16 for bfloat16 inputs, the arithmetic of the step kernel's bf16
+    form; this kernel has no bf16 form yet), NHWC in and out; x parts are
     concatenated."""
     h = h.permute(0, 3, 1, 2)
     x = torch.cat(_parts(x), dim=-1)
@@ -59,6 +63,22 @@ def sepconv_gru_plain(h: torch.Tensor, x, convs) -> torch.Tensor:
     h = _step_plain(h, x, *convs[:3], padding=(0, 2))
     h = _step_plain(h, x, *convs[3:], padding=(2, 0))
     return h.permute(0, 2, 3, 1).contiguous()
+
+
+def _matrices(convs) -> list:
+    """Per half: the merged z and r matrix and the q matrix, transposed
+    (N x K, float32), each followed by its bias."""
+    def taps(w):                                  # (Cout, Cin, 1|5, 5|1)
+        return w.detach().float().reshape(
+            w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
+
+    mats = []
+    for (wz, bz), (wr, br), (wq, bq) in (convs[:3], convs[3:]):
+        cin, c = wz.shape[1], wz.shape[0]
+        w_zr = torch.cat([taps(wz), taps(wr)], dim=2).reshape(TAPS * cin, 2 * c)
+        mats += [w_zr.t(), torch.cat([bz, br]),
+                 taps(wq).reshape(TAPS * cin, c).t(), bq]
+    return mats
 
 
 def pack_weights(convs) -> tuple:
@@ -70,28 +90,31 @@ def pack_weights(convs) -> tuple:
     and split into its TF32 hi and lo parts (``ops/conv_pack.py``). Returns
     the 8 contiguous float32 tensors (w_zr1, b_zr1, w_q1, b_q1, w_zr2,
     b_zr2, w_q2, b_q2)."""
-    def taps(w):                                  # (Cout, Cin, 1|5, 5|1)
-        return w.detach().float().reshape(
-            w.shape[0], w.shape[1], TAPS).permute(2, 1, 0)
-
-    packed = []
-    for (wz, bz), (wr, br), (wq, bq) in (convs[:3], convs[3:]):
-        cin, c = wz.shape[1], wz.shape[0]
-        w_zr = torch.cat([taps(wz), taps(wr)], dim=2).reshape(TAPS * cin, 2 * c)
-        packed += [split_tf32(w_zr.t()), torch.cat([bz, br]),
-                   split_tf32(taps(wq).reshape(TAPS * cin, c).t()), bq]
-    return tuple(t.detach().float().contiguous() for t in packed)
+    return tuple((split_tf32(t) if t.dim() == 2 else t).detach().float()
+                 .contiguous() for t in _matrices(convs))
 
 
-def check_packed(packed, k: int, c: int, device) -> None:
-    """Raise unless ``packed`` is ``pack_weights`` output with K = ``k``
-    rows (5 taps x (C + Cx)) and C = ``c``, on ``device``."""
+def pack_weights_bf16(convs) -> tuple:
+    """``pack_weights``' layout for the step kernel's bf16 form: ``w_zr``
+    (2C, 5 (C+Cx)) and ``w_q`` (C, 5 (C+Cx)) one bfloat16 matrix each (no
+    lo part), the biases float32 holding bfloat16 values."""
+    return tuple(t.to(torch.bfloat16).contiguous() if t.dim() == 2
+                 else round_bf16(t) for t in _matrices(convs))
+
+
+def check_packed(packed, k: int, c: int, device, bf16: bool = False) -> None:
+    """Raise unless ``packed`` is ``pack_weights`` (``bf16``:
+    ``pack_weights_bf16``) output with K = ``k`` rows (5 taps x (C + Cx))
+    and C = ``c``, on ``device``."""
     shapes = [(2, 2 * c, k), (2 * c,), (2, c, k), (c,)] * 2
+    if bf16:
+        shapes = [s[1:] if len(s) == 3 else s for s in shapes]
     if len(packed) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed GRU tensors, "
                          f"got {len(packed)}")
     for n, (t, s) in enumerate(zip(packed, shapes)):
-        check_operand(f"GRU packed[{n}]", t, s, device)
+        check_operand(f"GRU packed[{n}]", t, s, device,
+                      torch.bfloat16 if bf16 and n % 2 == 0 else None)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]

@@ -13,6 +13,10 @@ NHWC, as is the output (B, H, W, 128). ``convs`` are the five ``(weight,
 bias)`` pairs in torch layout, ordered (convc1, convc2, convf1, convf2,
 conv).
 
+The plain version also computes in bfloat16 for bfloat16 inputs
+(``conv_pack.conv2d``), the arithmetic of the step kernel's bf16 form
+(``ops/step_cuda.py``); this kernel has no bf16 form yet.
+
 ``motion_encoder`` is the entry point: a tensor on the CPU goes to the
 plain ``F.conv2d`` version, a CUDA tensor to the kernel in
 ``csrc/motion_fwd.cu`` (one launch, counted in ``launches``), which takes
@@ -30,7 +34,9 @@ import torch.nn.functional as F
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
-from raft_tpu_torch.ops.conv_pack import BN, pack_conv, packed_rows, round_up
+from raft_tpu_torch.ops.conv_pack import (BN, conv2d, pack_conv,
+                                          pack_conv_bf16, packed_rows,
+                                          round_up)
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
@@ -45,14 +51,15 @@ KSIZES = (1, 3, 7, 3, 3)
 
 def motion_encoder_plain(flow: torch.Tensor, corr: torch.Tensor,
                          convs) -> torch.Tensor:
-    """The encoder with ``F.conv2d``, NHWC in and out."""
+    """The encoder with ``F.conv2d`` (``conv_pack.conv2d``: in float32, or
+    in bfloat16 for bfloat16 inputs), NHWC in and out."""
     (wc1, bc1), (wc2, bc2), (wf1, bf1), (wf2, bf2), (wo, bo) = convs
     flo_c = flow.permute(0, 3, 1, 2)
-    cor = F.relu(F.conv2d(corr.permute(0, 3, 1, 2), wc1, bc1))
-    cor = F.relu(F.conv2d(cor, wc2, bc2, padding=1))
-    flo = F.relu(F.conv2d(flo_c, wf1, bf1, padding=3))
-    flo = F.relu(F.conv2d(flo, wf2, bf2, padding=1))
-    out = F.relu(F.conv2d(torch.cat([cor, flo], dim=1), wo, bo, padding=1))
+    cor = F.relu(conv2d(corr.permute(0, 3, 1, 2), wc1, bc1))
+    cor = F.relu(conv2d(cor, wc2, bc2, padding=1))
+    flo = F.relu(conv2d(flo_c, wf1, bf1, padding=3))
+    flo = F.relu(conv2d(flo, wf2, bf2, padding=1))
+    out = F.relu(conv2d(torch.cat([cor, flo], dim=1), wo, bo, padding=1))
     return torch.cat([out, flo_c], dim=1).permute(0, 2, 3, 1).contiguous()
 
 
@@ -67,25 +74,35 @@ def pack_weights(convs) -> tuple:
     return tuple(t for w, b in convs for t in pack_conv(w, b))
 
 
-def packed_shapes(cc: int) -> list:
-    """Shapes of ``pack_weights`` output for Cc correlation channels."""
+def pack_weights_bf16(convs) -> tuple:
+    """``pack_weights``' layout for the step kernel's bf16 form
+    (``conv_pack.pack_conv_bf16``): each matrix one bfloat16 ``(ldw,
+    rows)``, each bias float32 holding bfloat16 values."""
+    return tuple(t for w, b in convs for t in pack_conv_bf16(w, b))
+
+
+def packed_shapes(cc: int, bf16: bool = False) -> list:
+    """Shapes of ``pack_weights`` (or ``pack_weights_bf16``) output for Cc
+    correlation channels."""
     cins = (cc, WIDTHS[0], 2, WIDTHS[2], WIDTHS[1] + WIDTHS[3])
     shapes = []
     for cin, k, n in zip(cins, KSIZES, WIDTHS):
         ldw = round_up(n, BN)
-        shapes += [(2, ldw, packed_rows(cin, k * k)), (ldw,)]
+        w = (ldw, packed_rows(cin, k * k))
+        shapes += [w if bf16 else (2, *w), (ldw,)]
     return shapes
 
 
-def check_packed(packed, cc: int, device) -> None:
-    """Raise unless ``packed`` is ``pack_weights`` output for Cc = ``cc``
-    on ``device``."""
-    shapes = packed_shapes(cc)
+def check_packed(packed, cc: int, device, bf16: bool = False) -> None:
+    """Raise unless ``packed`` is ``pack_weights`` (``bf16``:
+    ``pack_weights_bf16``) output for Cc = ``cc`` on ``device``."""
+    shapes = packed_shapes(cc, bf16)
     if len(packed) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed motion tensors, "
                          f"got {len(packed)}")
     for n, (t, s) in enumerate(zip(packed, shapes)):
-        check_operand(f"motion packed[{n}]", t, s, device)
+        check_operand(f"motion packed[{n}]", t, s, device,
+                      torch.bfloat16 if bf16 and n % 2 == 0 else None)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

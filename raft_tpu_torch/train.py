@@ -134,7 +134,10 @@ def train(tcfg: TrainConfig,
         "async checkpointing": tcfg.async_checkpointing,
         "the training logger (log_dir)": log_dir is not None,
         "spatial sharding": spatial_shards != 1,
-        "RAFT-small training": getattr(mcfg, "small", False)})
+        "RAFT-small training": getattr(mcfg, "small", False),
+        "bf16 training (mixed_precision, corr_mxu_dtype='bfloat16')":
+            getattr(mcfg, "mixed_precision", False)
+            or getattr(mcfg, "corr_mxu_dtype", "auto") == "bfloat16"})
     if update_impl not in UPDATE_IMPLS:
         raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
                          f"got {update_impl!r}")

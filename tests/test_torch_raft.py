@@ -298,8 +298,23 @@ def test_iters_and_unported_configs_raise(port_model, frames):
         evaluate.FlowPredictor(port_model, iters=0, device="cpu")
     small = RAFT(RAFTConfig(small=True))
     assert small.update_block.encoder.convc1.in_channels == 4 * 7 * 7
-    with pytest.raises(NotImplementedError):
-        RAFT(RAFTConfig(mixed_precision=True))
+    # the bf16 policy builds and returns float32 flows; what it does not
+    # port yet (the chain's bf16 kernels, bf16 training) refuses
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.train import train
+
+    mixed = RAFT(RAFTConfig(mixed_precision=True))
+    mixed.load_state_dict(port_model.state_dict())
+    with torch.inference_mode():
+        low, up = mixed.eval()(_t(frames[0]), _t(frames[1]), iters=1)
+        assert low.dtype == up.dtype == torch.float32
+        assert bool(torch.isfinite(up).all())
+        with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
+            mixed(_t(frames[0]), _t(frames[1]), iters=1, update_impl="chain")
+    for cfg in (RAFTConfig(mixed_precision=True),
+                RAFTConfig(alternate_corr=True, corr_mxu_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="bf16 training"):
+            train(TrainConfig(num_steps=1), cfg, dataloader=[], device="cpu")
     with pytest.raises(ValueError):
         RAFT(RAFTConfig(normalized_coords=True))
 

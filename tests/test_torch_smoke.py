@@ -74,6 +74,22 @@ def test_tensor_core_check_counts_tf32_mmas(tmp_path):
         "HGMMA.64x64x8.F32.TF32": 2, "HMMA.1688.F32.TF32": 1}
 
 
+def test_tensor_core_check_counts_bf16_mmas(tmp_path):
+    """The bf16 forms' SASS check counts the tensor-core MMAs whose
+    operands are bfloat16 (mma.sync's m16n8k16 and the warpgroup's
+    m64n64k16), and no TF32 or half-precision one."""
+    sass = ("        /*0a10*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+            "        /*0b00*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+            "        /*0b10*/  HMMA.16816.F32.BF16 R8, R8, R12, R8 ;\n"
+            "        /*0c00*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0d00*/  HMMA.16816.F32 R4, R8, R12, R4 ;\n")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat <<'SASS'\n{sass}SASS\n")
+    tool.chmod(0o755)
+    assert chip_smoke.tensor_core_bf16_ops(str(tool), "lib.so") == {
+        "HGMMA.64x64x16.F32.BF16": 1, "HMMA.16816.F32.BF16": 2}
+
+
 @pytest.mark.parametrize("flops,nbytes,peak,ms,by", [
     (37.68e9, 20e6, chip_smoke.TF32X3_FLOPS, 0.22836, "operations"),
     (37.68e9, 20e6, chip_smoke.F32_FLOPS, 0.56239, "operations"),
