@@ -75,6 +75,17 @@ pyramid stored in bfloat16, and the bf16 corr form) against
 iters=32 with both bf16 forms once an iteration (ms/pair beside the float32
 path's), one pair profiled, and both forms timed (``corr_fwd_bf16`` and
 ``update_step_bf16`` rows, the latter beside cuDNN's bf16 convolutions).
+RAFT-large training under the policy (phase ``mixed train``): the bf16
+corr backward against its plain version at the chairs (B=8) and Sintel
+shapes (C=256 r=4, C=128 r=3), coherent and incoherent flows, in its three
+operand combinations (bf16 maps with float32 or bf16 products, float32
+maps with bf16 products), bf16 and float32 cotangents, each path forced,
+and timed (row ``corr_bwd_bf16``); one train step through the kernels
+against the plain route with ``mixed_precision=True`` and with
+``corr_mxu_dtype="bfloat16"``; seven chairs-size steps through ``train()``
+under the policy on the float32 run's weights and batches (each step's
+loss beside the float32 one's; corr_fwd_bf16, corr_bwd_bf16 and
+update_step_bf16 12 a step), one of them profiled.
 The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
 card it exits non-zero at once.
@@ -128,6 +139,11 @@ SPREAD_MARGIN = 4.0
 # gradient is above ADAM_EXACT = 10 eps; the others are held to 2 lr.
 ADAM_EXACT = 1e-7
 CORR_BWD_REL = 1e-4           # max|kernel - plain| / max|plain|
+# step_against_plain's bars in float32: the fixed bars above, the
+# backward kernels in situ and the BN statistics against the spread of two
+# plain runs, the rest against the plain route's move under PERTURB
+STEP_BARS = dict(loss=LOSS_REL, norm=NORM_REL, grad=GRAD_REL,
+                 param=PARAM_BAR, bn=BN_BAR, perturb=PERTURB, base="spread")
 # The sparse family at bench.py's configuration (352x480, B=8) and at
 # scripts/tpu_extras_bench.py's dense-encoder one (B=4, encoder_iterations
 # 2): one warm-up, then SPARSE_TIMED forwards.
@@ -159,6 +175,7 @@ DEVICE = "cuda"               # the train helpers' device
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
+TF32X2_FLOPS = TF32_FLOPS / 2  # two TF32 passes (one operand exact in TF32)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12           # dense bfloat16 on the tensor cores
 CONV_TILE_KERNELS = ("sepconv_gru", "motion_fwd", "update_step")
@@ -727,25 +744,30 @@ def profile_pair(torch, predictor, im1, im2, top: int = 10,
 
 @contextlib.contextmanager
 def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
-                perturb=None):
+                perturb=None, scale=PERTURB):
     """Every kernel's dispatcher replaced by its plain version (autograd
     through plain PyTorch), for the duration: the reference the kernel
     route is held against on the card. ``perturb``: a generator; the
     lookup's, the step's and the MSDA core's outputs are then multiplied by
-    1 + PERTURB * N(0, 1) from it."""
+    1 + ``scale`` * N(0, 1) from it (in float32, a bfloat16 output rounded
+    back)."""
     def noisy(out):
         if perturb is None:
             return out
-        return out * (1 + PERTURB * torch_randn_like(out, perturb))
-
-    def torch_randn_like(t, gen):
-        return t.new_empty(t.shape).normal_(generator=gen)
+        x = out.float()
+        return (x * (1 + scale * x.new_empty(x.shape).normal_(
+            generator=perturb))).to(out.dtype)
 
     swaps = {
         (corr_cuda, "windowed_correlation_fused"):
             lambda f1, pyr, c, r, scale=True, rescale=True: noisy(
                 corr_cuda.windowed_correlation_fused_plain(f1, pyr, c, r,
                                                            scale, rescale)),
+        (corr_cuda, "windowed_correlation_bf16"):
+            lambda f1, pyr, c, r, scale=True, rescale=True, out_dtype=None,
+            mxu_dtype="bfloat16": noisy(
+                corr_cuda.windowed_correlation_fused_plain(
+                    f1, pyr, c, r, scale, rescale, mxu_dtype, out_dtype)),
         (msda, "ms_deform_attn"):
             lambda v, shapes, loc, aw: noisy(
                 msda.ms_deform_attn_plain(v, shapes, loc, aw)),
@@ -770,10 +792,12 @@ def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
 
 @contextlib.contextmanager
 def plain_backward(pkg):
-    """The kernel route with only the backward kernels (corr_bwd,
-    msda_bwd) replaced by autograd through their plain versions: the
+    """The kernel route with only the backward kernels (corr_bwd, its bf16
+    form, msda_bwd) replaced by autograd through their plain versions: the
     backward kernels in situ."""
     swaps = {(pkg.corr_cuda, "windowed_correlation_bwd_cuda"):
+             pkg.corr_cuda.windowed_correlation_bwd_plain,
+             (pkg.corr_cuda, "windowed_correlation_bwd_bf16_cuda"):
              pkg.corr_cuda.windowed_correlation_bwd_plain,
              (pkg.msda_cuda, "ms_deform_attn_bwd_cuda"):
              pkg.msda.ms_deform_attn_bwd_plain}
@@ -840,7 +864,7 @@ def sparse_cancelled_by_norm(name):
 
 
 def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
-                       cancelled, **step_kw):
+                       cancelled, bars=None, control=None, **step_kw):
     """One train step from the weights ``make_model()`` gives, on one
     batch, through the kernels; through the kernels with the backward
     kernels replaced by autograd through their plain versions; and through
@@ -848,11 +872,17 @@ def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
     loss (and the sparse loss), grad_norm, every parameter's (clipped)
     gradient, every updated parameter and the batch-norm statistics.
     ``cancelled(name)``: the parameters whose gradient a following norm
-    cancels (left out of the gradient check). Returns the kernel route's
-    launches and a list of the checks that failed."""
+    cancels (left out of the gradient check). ``bars``: STEP_BARS (float32,
+    the default) or STEP_BARS_BF16. ``control``: a second ``make_model``
+    (the same weights without a precision lever) whose plain route the
+    kernel route's gradients are also compared with and printed; with
+    ``bars["control"]`` that reading must lie above the gradient bar.
+    Returns the kernel route's launches and a list of the checks that
+    failed."""
+    bars = STEP_BARS if bars is None else bars
     lr = pkg.make_schedule(tcfg)(0)
 
-    def step():
+    def step(make_model=make_model):
         model = make_model()
         state = pkg.create_train_state(model.to(DEVICE), tcfg)
         metrics = pkg.make_train_step(tcfg, **step_kw)(state, batch)
@@ -870,7 +900,7 @@ def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
     with plain_route(*mods):
         plain, again = step(), step()
     with plain_route(*mods, perturb=torch.Generator(
-            device=DEVICE).manual_seed(4)):
+            device=DEVICE).manual_seed(4), scale=bars["perturb"]):
         perturbed = step()
 
     def compare(a, b):
@@ -900,18 +930,24 @@ def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
         return worst
 
     problems = []
-    for key, bar in (("loss", LOSS_REL), ("sparse_loss", LOSS_REL),
-                     ("grad_norm", NORM_REL)):
+    for key, bar in (("loss", bars["loss"]), ("sparse_loss", bars["loss"]),
+                     ("grad_norm", bars["norm"])):
         if key not in plain[0]:
             continue
         a, b = kernel[0][key], plain[0][key]
         rel = abs(a - b) / abs(b)
+        if bars["base"] == "moved":     # the perturbed plain route's move
+            bar = max(bar, SPREAD_MARGIN * abs(perturbed[0][key] - b)
+                      / abs(b))
         print(f"{label} kernel vs plain: {key} {a:.7g} vs {b:.7g}, "
-              f"relative difference {rel:.3e} (bar {bar:g})")
+              f"relative difference {rel:.3e} (bar {bar:.3g})")
         if not (math.isfinite(a) and rel <= bar):
             problems.append(f"{label} {key}")
     spread = compare(again, plain)
     moved = compare(perturbed, plain)
+    base = spread if bars["base"] == "spread" else moved
+    base_label = ("plain vs plain" if bars["base"] == "spread" else
+                  f"plain vs plain perturbed by {bars['perturb']:g}")
 
     def check(what, got, base, bar, base_label):
         limit = max(bar, SPREAD_MARGIN * base[0])
@@ -919,24 +955,35 @@ def step_against_plain(torch, pkg, label, make_model, tcfg, batch,
               f"{base[0]:.3e} ({base[1]}); bar {limit:.3g}")
         if not got[0] <= limit:
             problems.append(f"{label} {what}")
+        return limit
 
     insitu = compare(kernel_plain_bwd, kernel)
+    moved_label = f"plain vs plain perturbed by {bars['perturb']:g}"
     check("backward kernels in situ (kernel route, its backward vs "
           "autograd through the plain versions), gradients max|diff| / "
-          "max|plain|", insitu["grad"], spread["grad"], GRAD_REL,
-          "plain vs plain")
+          "max|plain|", insitu["grad"], base["grad"], bars["grad"],
+          base_label)
     got = compare(kernel, plain)
-    check("kernel vs plain, gradients max|diff| / max|plain| (the conv "
-          "biases a norm cancels left out)", got["grad"], moved["grad"],
-          GRAD_REL, f"plain vs plain perturbed by {PERTURB:g}")
+    limit = check("kernel vs plain, gradients max|diff| / max|plain| (the "
+                  "conv biases a norm cancels left out)", got["grad"],
+                  moved["grad"], bars["grad"], moved_label)
+    if control is not None:
+        with plain_route(*mods):
+            ctrl = compare(kernel, step(control))["grad"]
+        gate = bars.get("control", False)
+        print(f"{label} control, kernel route vs the plain route without "
+              f"the lever, gradients max|diff| / max|plain|: {ctrl[0]:.3e} "
+              f"({ctrl[1]}); " + (f"must exceed the bar {limit:.3g}" if gate
+                                  else f"(the bar {limit:.3g}; not a gate)"))
+        if gate and not ctrl[0] > limit:
+            problems.append(f"{label} control within the gradient bar")
     check(f"kernel vs plain, parameters after one AdamW update at lr "
           f"{lr:.3g} where |gradient| >= {ADAM_EXACT:g}", got["param"],
-          moved["param"], PARAM_BAR, f"plain vs plain perturbed by "
-          f"{PERTURB:g}")
+          moved["param"], bars["param"], moved_label)
     check("kernel vs plain, parameters elsewhere", got["near0"], (0.0, ""),
           2 * lr, "bound 2 lr")
-    check("kernel vs plain, BN running statistics", got["bn"], spread["bn"],
-          BN_BAR, "plain vs plain")
+    check("kernel vs plain, BN running statistics", got["bn"], base["bn"],
+          bars["bn"], base_label)
     if any(r[0]["skipped_steps"] for r in (kernel, plain)):
         problems.append(f"the kernel-vs-plain {label} was skipped")
     return launches, problems
@@ -977,13 +1024,15 @@ def sparse_train_against_plain(torch, pkg):
                               tcfg, batch, sparse_cancelled_by_norm)
 
 
-def train_full_size(torch, pkg, weights_path):
-    """RAFT-large through ``raft_tpu_torch.train.train`` at the chairs
-    defaults (B=8, 368x496, iters=12, lr 4e-4 one-cycle, AdamW, clip 1.0,
-    gamma 0.8, batch norm training) from the fixture weights, on synthetic
-    batches made on the card, 2 warm-up and 5 timed steps, with every launch
-    counter set to 0 just before. Returns (state, ms per step, launches,
-    peak MiB)."""
+def train_full_size(torch, pkg, weights_path, mcfg=None, label="f32"):
+    """RAFT-large (``mcfg``, float32 by default) through
+    ``raft_tpu_torch.train.train`` at the chairs defaults (B=8, 368x496,
+    iters=12, lr 4e-4 one-cycle, AdamW, clip 1.0, gamma 0.8, batch norm
+    training) from the fixture weights, on synthetic batches made on the
+    card (the same batches for every config), 2 warm-up and 5 timed steps,
+    with every launch counter set to 0 just before. Returns (state, tcfg,
+    ms per timed step, launches, peak MiB, every step's loss)."""
+    mcfg = pkg.RAFTConfig() if mcfg is None else mcfg
     steps = TRAIN_WARMUP + TRAIN_TIMED
     tcfg = pkg.TrainConfig(batch_size=TRAIN_B, image_size=TRAIN_HW,
                            iters=TRAIN_ITERS, num_steps=steps)
@@ -996,7 +1045,7 @@ def train_full_size(torch, pkg, weights_path):
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts(pkg.counters)
-    state = pkg.train(tcfg, pkg.RAFTConfig(), dataloader=loader,
+    state = pkg.train(tcfg, mcfg, dataloader=loader,
                       restore_ckpt=weights_path, device=DEVICE,
                       logger=Logger())
     torch.cuda.synchronize()
@@ -1006,28 +1055,36 @@ def train_full_size(torch, pkg, weights_path):
     ms = [1e3 * (b - a) for a, b in zip(loader.pulls,
                                          loader.pulls[1:] + [end])]
     if state.step != steps or len(logged) != steps:
-        fail(f"train() took {state.step} steps, expected {steps}")
+        fail(f"train() [{label}] took {state.step} steps, expected {steps}")
+    print(f"train [{label}]:")
     for n, (m, lr) in enumerate(logged):
         print(f"  step {n}: loss {m['loss']:.5f}, grad_norm "
               f"{m['grad_norm']:.4f}, epe {m['epe']:.4f}, lr {lr:.4g}, "
               f"{ms[n]:.1f} ms{' (warm-up)' if n < TRAIN_WARMUP else ''}")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 and not m["skipped_steps"]):
-            fail(f"train step {n} was not finite")
+            fail(f"train step {n} [{label}] was not finite or was skipped")
     start = pkg.load_npz(weights_path)
     still = [n for n, p in state.model.named_parameters()
              if torch.equal(p.detach().cpu(), start[n])]
     if still:
-        fail(f"{len(still)} parameters did not change in training: "
-             f"{still[:3]}")
+        fail(f"{len(still)} parameters did not change in training "
+             f"[{label}]: {still[:3]}")
     block = state.model.update_block
-    for module, pack in ((block.encoder, pkg.motion_cuda.pack_weights),
-                         (block.gru, pkg.gru_cuda.pack_weights)):
+    bf16 = mcfg.mixed_precision
+    for module, pack in (
+            (block.encoder, pkg.motion_cuda.pack_weights_bf16 if bf16
+             else pkg.motion_cuda.pack_weights),
+            (block.gru, pkg.gru_cuda.pack_weights_bf16 if bf16
+             else pkg.gru_cuda.pack_weights)):
+        cached = (module.packed_weights_bf16() if bf16
+                  else module.packed_weights())
         if not all(torch.equal(a, b) for a, b in
-                   zip(module.packed_weights(), pack(module.convs()))):
+                   zip(cached, pack(module.convs()))):
             fail("a packed-weight cache was not refreshed after the "
                  "optimizer's updates")
-    return state, tcfg, ms[TRAIN_WARMUP:], launches, peak_mib
+    return (state, tcfg, ms[TRAIN_WARMUP:], launches, peak_mib,
+            [m["loss"] for m, _ in logged])
 
 
 def sparse_train_full_size(torch, pkg, label, batch, enc, warmup, timed):
@@ -1085,7 +1142,7 @@ def sparse_train_full_size(torch, pkg, label, batch, enc, warmup, timed):
 # kernel or one of the profiler ranges around its launch.
 TRAIN_SPLIT = (
     ("forward kernels (corr_fwd, update_step)",
-     ("corr_fwd_kernel", "update_step_kernel")),
+     ("corr_fwd_kernel", "update_step_kernel", "update_step_bf16_kernel")),
     ("step kernel's plain recompute (backward)", ("RecomputeFnBackward",)),
     ("corr_bwd (backward)", ("WindowedCorrelationFnBackward",)),
     ("optimizer, clipping and guard",
@@ -1096,8 +1153,9 @@ TRAIN_SPLIT = (
 DEFAULT_SPLIT = "heads, upsampling, loss (forward)"
 # The same time by kernel name alone, a check on the split above.
 NAME_SPLIT = (("corr_fwd, update_step (forward kernels)",
-               ("corr_fwd_kernel", "update_step_kernel")),
-              ("corr_bwd", ("corr_bwd_kernel",)),
+               ("corr_fwd_kernel", "update_step_kernel",
+                "update_step_bf16_kernel")),
+              ("corr_bwd", ("corr_bwd_kernel", "corr_bwd_bf16_kernel")),
               ("cuDNN convolutions and GEMMs",
                ("xmma", "cudnn", "conv", "gemm", "wgrad", "dgrad")),
               ("optimizer (multi-tensor kernels)", ("multi_tensor",)))
@@ -1161,10 +1219,14 @@ def print_overlaps(label, events, device_ms, busy):
         print(f"  {ms:8.3f} ms {n:5d}x  {first[:60]}  ||  {then[:60]}")
 
 
-def profile_train_step(torch, step_fn, state, batch):
+def profile_train_step(torch, step_fn, state, batch, label="train profile",
+                       top: int = 8):
     """One train step under torch.profiler: device time split by
     TRAIN_SPLIT (else DEFAULT_SPLIT) from the host ranges around each
-    kernel's launch, and by kernel name (NAME_SPLIT)."""
+    kernel's launch, by kernel name (NAME_SPLIT), and the ``top`` kernels
+    by device time. Returns the split by host ranges, and under "busy_ms",
+    "wall_ms" and "launches" the device's busy time, the profiled wall and
+    the device events."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1178,12 +1240,12 @@ def profile_train_step(torch, step_fn, state, batch):
     events = device_events(torch, prof)
     device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     if not device_ms:
-        print("train profile: the profiler recorded no device time "
+        print(f"{label}: the profiler recorded no device time "
               "(not measured)")
         return {}
     busy = busy_ms(events)
-    print_overlaps("train profile", events, device_ms, busy)
-    print(f"train profile: one step at B={TRAIN_B} {TRAIN_HW[0]}x"
+    print_overlaps(label, events, device_ms, busy)
+    print(f"{label}: one step at B={TRAIN_B} {TRAIN_HW[0]}x"
           f"{TRAIN_HW[1]} iters={TRAIN_ITERS}: device busy {busy:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler "
           f"({100 * busy / wall_ms:.1f}%), device time {device_ms:.2f} ms, "
@@ -1229,6 +1291,16 @@ def profile_train_step(torch, step_fn, state, batch):
     print("  by kernel name:")
     for cat, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f}% {n:6d}x  {cat}")
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        kernels[e.name][0] += e.time_range.elapsed_us() / 1e3
+        kernels[e.name][1] += 1
+    print(f"  top {top} device operations:")
+    for name, (ms, n) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f}% {n:6d}x  "
+              f"{name[:90]}")
+    out.update(busy_ms=busy, wall_ms=wall_ms, launches=len(events))
     return out
 
 
@@ -2398,6 +2470,327 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
     return rows
 
 
+# -- bf16 mixed-precision training ------------------------------------------
+
+# The bf16 corr backward against its plain version, two readings per
+# gradient (df1 and every df2), each max|kernel - plain| / max|plain|:
+# - as returned, in the maps' dtype: within one bf16 eps for bfloat16
+#   gradients (the two sum in other orders and round once: a flipped
+#   rounding is an ulp, between one and two of them an eps of the largest);
+# - the float32 sums before that rounding (the kernel's out_dtype=float32,
+#   the plain version on float32 copies of the same maps): the largest
+#   difference within the first bar of CORR_BWD_BF16_BARS for the
+#   combination, and |kernel - plain| / |plain| (2-norms) within the
+#   second. A control reading, that 2-norm of the kernel against the plain
+#   version at the other mxu_dtype (what a kernel that left out, or added,
+#   the bfloat16 rounding of the maps and coefficients would read), must
+#   lie above the second bar: the bar tells the two apart.
+# Under mxu "float32" the kernel's two TF32 passes and the plain float32
+# sums differ by the TF32 split's 2^-22 and the order. Under "bfloat16" both
+# round the same float32 coefficients to bfloat16, folded in other orders:
+# a coefficient a float32 ulp from a bfloat16 rounding boundary can round
+# the other way (about one in 2^16), which moves the gradients it touches by
+# its bfloat16 ulp, as much as the control moves every gradient. So the
+# largest difference cannot tell the two apart there, and the 2-norm can:
+# a few flipped coefficients among millions barely move it. Read on an H100
+# over this phase's inputs: mxu "float32" 3.2e-6 largest, 1.5e-6 2-norm;
+# mxu "bfloat16" up to 1.1e-3 largest, 2.5e-5 2-norm; the controls' 2-norm
+# 1.7e-3 at least.
+CORR_BWD_BF16_BARS = {("bfloat16", "float32"): (1e-4, 1e-5),
+                      ("bfloat16", "bfloat16"): (4e-3, 1e-4),
+                      ("float32", "bfloat16"): (4e-3, 1e-4)}
+# Its operand combinations, (maps, mxu_dtype): the policy's training lookup
+# (mixed_precision alone), with corr_mxu_dtype="bfloat16", and that lever
+# alone on float32 maps; with each, the cotangent it gets in training (the
+# windows' dtype: the maps'), and at the chairs shape both cotangents.
+BF16_BWD_COMBOS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+                   ("float32", "bfloat16"))
+# step_against_plain's bars under the bf16 policy: the plain route's move
+# under relative noise of PERTURB_BF16 on the lookup's and the step's
+# bfloat16 outputs (which flips about one rounding in twenty by an ulp, as
+# the kernels' other summation orders do) sets every limit, times
+# SPREAD_MARGIN, with floors of LOSS_REL_BF16 and NORM_REL_BF16 (relative),
+# GRAD_REL_BF16 of each parameter's largest plain gradient (8 bf16 eps, the
+# JAX package's bar for its bf16 paths), PARAM_BAR and BN_BAR_BF16. The
+# mixed step's kernel route reads 4.2% of a parameter's largest gradient
+# (fnet.layer3.0.downsample.0.weight; the forward kernels' roundings, over
+# four iterations; its backward kernels in situ 0.9%) on an H100. The
+# control, the plain route of the float32 model, must lie above the
+# gradient bar (38.8% there): a kernel route that ignored the policy fails.
+# Under corr_mxu_dtype="bfloat16" alone the lever moves the gradients less
+# (1.5%) than the perturbed plain route's spread, so its step check holds
+# the route to the plain route only; the lever's own numerics are held at
+# the kernels (CORR_BWD_BF16_BARS and the corr_fwd_bf16 checks).
+PERTURB_BF16 = 2.0 ** -12
+LOSS_REL_BF16, NORM_REL_BF16, GRAD_REL_BF16, BN_BAR_BF16 = (
+    1e-4, 1e-3, 8 * BF16_EPS, 1e-3)
+STEP_BARS_BF16 = dict(loss=LOSS_REL_BF16, norm=NORM_REL_BF16,
+                      grad=GRAD_REL_BF16, param=PARAM_BAR, bn=BN_BAR_BF16,
+                      perturb=PERTURB_BF16, base="moved", control=True)
+# JAX's own bf16-versus-float32 loss gap in training, BF16_BACKWARD_AB.json
+# (the JAX package on the CPU, 20 steps, B=2, 64x96, corr_mxu_dtype
+# "bfloat16" alone against float32): printed beside the port's gap under
+# the whole policy on the card, not a gate (the whole policy moves JAX's
+# own losses further: scripts/mixed_train_trajectory.py)
+JAX_BF16_LOSS_GAP = 0.038
+
+
+def bf16_corr_bwd_work(torch, f1, pyramid, coords, radius, g):
+    """corr_bwd_work's operations with the bytes of these operands: the
+    maps read and their gradients written in the maps' dtype, the
+    cotangent in its own."""
+    flops, _ = corr_bwd_work(torch, f1, pyramid, coords, radius)
+    maps = f1.numel() + sum(f.numel() for f in pyramid)
+    return flops, (2 * f1.element_size() * maps + 4 * coords.numel()
+                   + g.element_size() * g.numel())
+
+
+def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
+                        err):
+    """The bf16 corr backward against its plain version at the chairs train
+    shape (B=8, 46x62, C=256, r=4) and the Sintel shape (B=1, 55x128, C=256
+    r=4, and C=128 r=3), on coherent and incoherent flows (CORR_FLOWS), for
+    each operand combination (BF16_BWD_COMBOS) with its training cotangent,
+    at the chairs shape also with the other; on coherent flows also with
+    each path forced; each against CORR_BWD_BF16_BARS with its control,
+    failing after every case is printed. Then each combination timed at the
+    default budget (ms, queued ms_q, the bound at 989 TFLOP/s for bf16
+    products and 247.5 for the two TF32 passes, the shared-path share), the
+    plain version too for the policy's combination. Updates ``err``; returns
+    {"<shape> <flow> <maps>/<mxu>": row}, "max_rel_err" and "readings"
+    ({"<maps>/<mxu>": [the largest float32-sum reading, the largest
+    2-norm one, the smallest control]})."""
+    cases = [("chairs", TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, 256,
+              radius, CORR_FLOWS["chairs"]),
+             ("sintel", 1, 55, 128, 256, radius, CORR_FLOWS["sintel"]),
+             ("sintel r=3", 1, 55, 128, SMALL_C, 3, CORR_FLOWS["sintel"])]
+    default = corr_cuda.TILE_BUDGET
+    rows = {}
+    worst = 0.0
+    readings = {combo: [0.0, 0.0, math.inf] for combo in BF16_BWD_COMBOS}
+    problems = []
+
+    def rel(got, want, norm=False):
+        """max|got - want| / max|want| (|got - want| / |want|, 2-norms,
+        with ``norm``), the largest over df1 and every df2."""
+        def one(a, b):
+            d, b = a.float() - b.float(), b.float()
+            if norm:
+                return float(d.norm() / b.norm())
+            return float(d.abs().max() / b.abs().max())
+        return max(one(a, b) for a, b in zip((got[0], *got[1]),
+                                             (want[0], *want[1])))
+
+    for label, b, h, w, c, r, flows in cases:
+        for flow, max_px in flows.items():
+            f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w,
+                                          c=c, flow=flow, b=b, max_px=max_px)
+            win = (2 * r + 1) ** 2 * len(pyr)
+            g32 = torch.randn(b, h, w, win, device="cuda")
+            for maps, mxu in BF16_BWD_COMBOS:
+                dt = getattr(torch, maps)
+                f1m, pyrm = f1.to(dt), tuple(p.to(dt) for p in pyr)
+                # the same values in float32: the plain version's sums
+                # before the rounding to the maps' dtype
+                f1f, pyrf = f1m.float(), tuple(p.float() for p in pyrm)
+                other = "float32" if mxu == "bfloat16" else "bfloat16"
+                bar32, bar_norm = CORR_BWD_BF16_BARS[(maps, mxu)]
+                bar = BF16_EPS if maps == "bfloat16" else bar32
+                gdts = ((maps, "float32" if maps == "bfloat16"
+                         else "bfloat16") if label == "chairs" else (maps,))
+                for gdt in gdts:
+                    g = g32.to(getattr(torch, gdt))
+                    want = corr_cuda.windowed_correlation_bwd_plain(
+                        f1m, pyrm, coords, g, r, mxu_dtype=mxu)
+                    want32 = corr_cuda.windowed_correlation_bwd_plain(
+                        f1f, pyrf, coords, g, r, mxu_dtype=mxu)
+                    ctrl32 = corr_cuda.windowed_correlation_bwd_plain(
+                        f1f, pyrf, coords, g, r, mxu_dtype=other)
+                    paths = [("default", default)]
+                    if flow == "coherent" and gdt == maps:
+                        paths += [("warp", 0), ("shared", FORCE_SHARED)]
+                    for path, budget in paths:
+                        corr_cuda.TILE_BUDGET = budget
+                        corr_cuda.reset_path_counts()
+                        try:
+                            got = corr_cuda.windowed_correlation_bwd_bf16_cuda(
+                                f1m, pyrm, coords, g, r, mxu_dtype=mxu)
+                            got32 = corr_cuda.windowed_correlation_bwd_bf16_cuda(
+                                f1m, pyrm, coords, g, r, mxu_dtype=mxu,
+                                out_dtype=torch.float32)
+                        finally:
+                            corr_cuda.TILE_BUDGET = default
+                        torch.cuda.synchronize()
+                        counts = corr_cuda.path_counts()["bwd"]
+                        what = (f"{label} B={b} {h}x{w} C={c} r={r} {flow}, "
+                                f"{maps} maps, mxu {mxu}, {gdt} cotangent, "
+                                f"{path} path")
+                        for a, b_ in zip((got[0], *got[1]),
+                                         (want[0], *want[1])):
+                            err["corr_bwd_bf16"] = max(
+                                err["corr_bwd_bf16"],
+                                float((a.float() - b_.float()).abs().max()))
+                            if a.dtype != dt:
+                                fail(f"corr_bwd_bf16 returned {a.dtype} for "
+                                     f"{maps} maps")
+                        out, sums = rel(got, want), rel(got32, want32)
+                        norm = rel(got32, want32, norm=True)
+                        ctrl = rel(got32, ctrl32, norm=True)
+                        worst = max(worst, out)
+                        seen = readings[(maps, mxu)]
+                        seen[:] = (max(seen[0], sums), max(seen[1], norm),
+                                   min(seen[2], ctrl))
+                        print(f"corr_bwd_bf16 {what} [shared "
+                              f"{100 * shared_share(counts):.1f}%]: max|"
+                              f"kernel - plain| / max|plain| = {out:.3e} = "
+                              f"{out / BF16_EPS:.3f} bf16 eps (bar "
+                              f"{bar:.3g}); float32 sums {sums:.3e} (bar "
+                              f"{bar32:g}), 2-norm {norm:.3e} (bar "
+                              f"{bar_norm:g}), control at mxu {other} "
+                              f"{ctrl:.3e}")
+                        if not (out <= bar and sums <= bar32
+                                and norm <= bar_norm < ctrl):
+                            problems.append(what)
+                        forced = {"warp": 1, "shared": 0}.get(path)
+                        if forced is not None and not (
+                                counts[forced] > counts[1 - forced]):
+                            fail(f"the {path} path was not taken: {counts}")
+                g = g32.to(dt)
+                corr_cuda.reset_path_counts()
+                run = (lambda: corr_cuda.windowed_correlation_bwd_bf16_cuda(
+                    f1m, pyrm, coords, g, r, mxu_dtype=mxu))
+                run()
+                share = shared_share(corr_cuda.path_counts()["bwd"])
+                work = bf16_corr_bwd_work(torch, f1m, pyrm, coords, r, g)
+                peak = BF16_FLOPS if mxu == "bfloat16" else TF32X2_FLOPS
+                bound_ms, bound_by = bound(*work, peak=peak)
+                row = {"ms": time_ms(torch, run),
+                       "ms_q": queued_ms(torch, run),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "shared_share": share,
+                       "shape": f"B={b} {h}x{w} C={c} L=4 r={r}, {maps} "
+                                f"maps and cotangent, mxu {mxu}, flows up "
+                                f"to {max_px:g} feature px"}
+                if (maps, mxu) == BF16_BWD_COMBOS[0]:
+                    row["plain_ms"] = time_ms(torch, lambda: (
+                        corr_cuda.windowed_correlation_bwd_plain(
+                            f1m, pyrm, coords, g, r, mxu_dtype=mxu)), n=5,
+                        warmup=1)
+                rows[f"{label} {flow} {maps}/{mxu}"] = row
+                print(f"corr_bwd_bf16 {label} {flow} ({row['shape']}): "
+                      f"{row['ms']:.4f} ms a launch, queued "
+                      f"{row['ms_q']:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({bound_by}); shared path on {100 * share:.1f}% of "
+                      f"(tile, level) blocks"
+                      + (f"; plain {row['plain_ms']:.4f} ms"
+                         if "plain_ms" in row else ""))
+    for (maps, mxu), (sums, norm, ctrl) in readings.items():
+        bars = CORR_BWD_BF16_BARS[(maps, mxu)]
+        print(f"corr_bwd_bf16 {maps} maps, mxu {mxu}: float32 sums at most "
+              f"{sums:.3e} of max|plain| apart (bar {bars[0]:g}), their "
+              f"2-norm {norm:.3e} (bar {bars[1]:g}), the control's 2-norm "
+              f"at least {ctrl:.3e}")
+    if problems:
+        fail("corr_bwd_bf16 disagrees with its plain version, or its bar "
+             "does not separate the control, at " + "; ".join(problems))
+    rows["max_rel_err"] = worst
+    rows["readings"] = {f"{m}/{x}": v for (m, x), v in readings.items()}
+    return rows
+
+
+def mixed_train_phase(torch, pkg, weights, f32_run, err):
+    """RAFT-large training under the bf16 policy: the bf16 corr backward
+    against its plain version (bf16_corr_bwd_phase); one train step
+    through the kernels against the plain route (B=2, 184x248, iters=4)
+    with ``mixed_precision=True`` and, separately,
+    ``corr_mxu_dtype="bfloat16"``, each beside its control (the float32
+    model's plain route); then ``train()`` at the chairs defaults
+    under ``mixed_precision=True`` on the batches and weights of the float32
+    run ``f32_run`` (train_full_size's return), each step's loss beside the
+    float32 one's, and one mixed step profiled. Returns (the corr_bwd_bf16
+    row's timings, launches of the mixed train run, steps, problems)."""
+    t0 = time.perf_counter()
+    cuobjdump = os.path.join(os.path.dirname(pkg.build.nvcc()), "cuobjdump")
+    lib = pkg.build.build(("corr_bwd_bf16",))["corr_bwd_bf16"]
+    sass = {"sass_tf32_mma": tensor_core_tf32_ops(cuobjdump, lib),
+            "sass_bf16_mma": tensor_core_bf16_ops(cuobjdump, lib)}
+    print(f"  corr_bwd_bf16 SASS, tensor-core MMAs: {sass}")
+    if not all(sass.values()):
+        fail("corr_bwd_bf16 lacks its TF32 (mxu float32) or BF16 (mxu "
+             "bfloat16) tensor-core MMAs in its SASS")
+    timings = bf16_corr_bwd_phase(torch, pkg.corr_cuda, pkg.corr,
+                                  pkg.sampling, np.random.default_rng(12),
+                                  4, err)
+    timings.update({k: sum(v.values()) for k, v in sass.items()})
+    phase_seconds("mixed train: corr_bwd_bf16", t0)
+    t0 = time.perf_counter()
+    tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
+                           iters=CMP_ITERS, num_steps=100)
+    batch = synthetic_batch(torch, CMP_B, CMP_HW,
+                            torch.Generator(device=DEVICE).manual_seed(1))
+    state_dict = pkg.load_npz(weights)
+    problems = []
+    for label, levers, bars, per_step in (
+            ("mixed train step", dict(mixed_precision=True), STEP_BARS_BF16,
+             {"corr_fwd_bf16": CMP_ITERS, "corr_bwd_bf16": CMP_ITERS,
+              "update_step_bf16": CMP_ITERS}),
+            ("mxu-bf16 train step", dict(corr_mxu_dtype="bfloat16"),
+             dict(STEP_BARS_BF16, control=False),
+             {"corr_fwd_bf16": CMP_ITERS, "corr_bwd_bf16": CMP_ITERS,
+              "update_step": CMP_ITERS})):
+        def make_model(levers=levers):
+            model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True, **levers))
+            model.load_state_dict(state_dict)
+            return model
+
+        def make_f32():
+            model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True))
+            model.load_state_dict(state_dict)
+            return model
+
+        launches, found = step_against_plain(
+            torch, pkg, label, make_model, tcfg, batch, cancelled_by_norm,
+            bars=bars, control=make_f32, alternate_corr=True)
+        check_launches(launches, 1, per_step, unit="step")
+        problems += found
+    phase_seconds("mixed train: steps against plain", t0)
+    t0 = time.perf_counter()
+    f32_ms, f32_losses = f32_run[2], f32_run[5]
+    state, tcfg, step_ms, launches, peak, losses = train_full_size(
+        torch, pkg, weights, pkg.RAFTConfig(mixed_precision=True), "mixed")
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    shares = print_path_shares(pkg.corr_cuda, f"train mixed: {steps} chairs "
+                               f"steps")
+    check_launches(launches, steps, {"corr_fwd_bf16": TRAIN_ITERS,
+                                     "corr_bwd_bf16": TRAIN_ITERS,
+                                     "update_step_bf16": TRAIN_ITERS},
+                   unit="step")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)]
+    for n, (a, b, gap) in enumerate(zip(losses, f32_losses, gaps)):
+        print(f"  step {n}: loss mixed {a:.6f}, f32 {b:.6f}, relative gap "
+              f"{gap:.3e}")
+    ms, f32 = statistics.median(step_ms), statistics.median(f32_ms)
+    print(f"train mixed: RAFT-large bf16 policy, B={TRAIN_B} {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]}, iters={TRAIN_ITERS}, {TRAIN_TIMED} timed steps "
+          f"after {TRAIN_WARMUP}: median {ms:.2f} ms/step (all "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{1e3 * TRAIN_B / ms:.2f} samples/s, float32 {f32:.2f} ms/step "
+          f"in this run ({f32 / ms:.2f}x); peak memory {peak:.1f} MiB; loss "
+          f"gap to float32 at most {max(gaps):.3e} relative (JAX on the CPU "
+          f"with corr_mxu_dtype='bfloat16' alone, BF16_BACKWARD_AB.json: "
+          f"{JAX_BF16_LOSS_GAP}; not a gate)")
+    profile = profile_train_step(
+        torch, pkg.make_train_step(tcfg, alternate_corr=True), state,
+        synthetic_batch(torch, TRAIN_B, TRAIN_HW,
+                        torch.Generator(device="cuda").manual_seed(3)),
+        label="train profile mixed")
+    phase_seconds("mixed train: chairs", t0)
+    timings.update(ms_per_step_mixed=ms, ms_per_step_f32=f32,
+                   loss_gap_max=max(gaps), peak_mib_mixed=peak,
+                   shared_share_train=shares["bwd"], profile_mixed=profile)
+    return timings, launches, steps, problems
+
+
 def main():
     import torch
 
@@ -2471,7 +2864,8 @@ def main():
     # -- kernels against their plain versions ------------------------------
     err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
            "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0,
-           "msda_bwd": 0.0, "corr_fwd_bf16": 0.0, "update_step_bf16": 0.0}
+           "msda_bwd": 0.0, "corr_fwd_bf16": 0.0, "update_step_bf16": 0.0,
+           "corr_bwd_bf16": 0.0}
     corr_bwd_rel = msda_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
@@ -2664,6 +3058,7 @@ def main():
                 "update_step": (step_cuda, "launches"),
                 "corr_fwd_bf16": (corr_cuda, "bf16_launches"),
                 "update_step_bf16": (step_cuda, "bf16_launches"),
+                "corr_bwd_bf16": (corr_cuda, "bwd_bf16_launches"),
                 "motion_fwd": (motion_cuda, "launches"),
                 "sepconv_gru": (gru_cuda, "launches"),
                 "msda_fwd": (msda_cuda, "launches"),
@@ -2796,8 +3191,8 @@ def main():
                    {"corr_fwd": CMP_ITERS, "corr_bwd": CMP_ITERS,
                     "update_step": CMP_ITERS, "motion_fwd": 0,
                     "sepconv_gru": 0}, unit="step")
-    state, tcfg, step_ms, train_launches, train_peak = train_full_size(
-        torch, pkg, weights)
+    state, tcfg, step_ms, train_launches, train_peak, f32_losses = \
+        train_full_size(torch, pkg, weights)
     train_shares = print_path_shares(
         corr_cuda, f"train: {TRAIN_WARMUP + TRAIN_TIMED} chairs steps")
     steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -2812,6 +3207,15 @@ def main():
                    {"corr_fwd": TRAIN_ITERS, "corr_bwd": TRAIN_ITERS,
                     "update_step": TRAIN_ITERS, "motion_fwd": 0,
                     "sepconv_gru": 0}, unit="step")
+
+    # -- train RAFT-large under the bf16 mixed-precision policy -------------
+    t0 = time.perf_counter()
+    mixed_train, mixed_train_launches, mixed_steps, mixed_problems = \
+        mixed_train_phase(torch, pkg, weights, (
+            state, tcfg, step_ms, train_launches, train_peak, f32_losses),
+            err)
+    problems += mixed_problems
+    phase_seconds("mixed train", t0)
 
     # -- train SparseRAFT: one step against the plain versions, then at
     #    the fork's training resolution ---------------------------------
@@ -3105,6 +3509,36 @@ def main():
         fail("kernel and plain train steps disagree: " + "; ".join(problems))
     if sparse_problems:
         fail("sparse checks failed: " + "; ".join(sparse_problems))
+    for row in mixed_rows:
+        row["train_launches_per_step"] = (
+            mixed_train_launches[row["name"]] / mixed_steps)
+    main_bwd = mixed_train["chairs coherent bfloat16/float32"]
+    mixed_rows.append({
+        "name": "corr_bwd_bf16", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/corr_bwd_bf16.cu",
+        "replaces": "raft_tpu/ops/corr_pallas.py:276", "path": "mixed train",
+        "launches": mixed_train_launches["corr_bwd_bf16"],
+        "launches_per_step": mixed_train_launches["corr_bwd_bf16"]
+        / mixed_steps,
+        "max_abs_err": err["corr_bwd_bf16"],
+        "max_rel_err": mixed_train["max_rel_err"], "ms": main_bwd["ms"],
+        "plain_ms": main_bwd["plain_ms"], "bound_ms": main_bwd["bound_ms"],
+        "bound_by": main_bwd["bound_by"], "library_ms": None,
+        "ms_q": main_bwd["ms_q"],
+        "shape": f"chairs coherent: {main_bwd['shape']}",
+        "readings": mixed_train["readings"],
+        "by_input": {k: v for k, v in mixed_train.items()
+                     if isinstance(v, dict) and "ms" in v},
+        **{k: v for k, v in mixed_train.items()
+           if k in ("ms_per_step_mixed", "ms_per_step_f32", "loss_gap_max",
+                    "peak_mib_mixed", "shared_share_train",
+                    "profile_mixed", "sass_tf32_mma", "sass_bf16_mma")}})
+    print(f"corr_bwd_bf16: {main_bwd['ms']:.4f} ms a launch, queued "
+          f"{main_bwd['ms_q']:.4f} ms, bound {main_bwd['bound_ms']:.4f} ms "
+          f"({main_bwd['bound_by']}, two TF32 passes at 247.5 TFLOP/s and "
+          f"HBM), "
+          f"plain {main_bwd['plain_ms']:.4f} ms, library none "
+          f"({main_bwd['shape']})")
     kernels.extend(mixed_rows)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

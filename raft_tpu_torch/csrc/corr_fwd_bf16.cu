@@ -66,17 +66,6 @@ __device__ __forceinline__ float2 bf16_floats(const float* p) {
   return __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
 }
 
-// d += a * b: one m16n8k16 bfloat16 product with f32 accumulation. a0..a3
-// hold (g, 2t..2t+1), (g + 8, 2t..2t+1), (g, 2t+8..2t+9), (g + 8,
-// 2t+8..2t+9); b0, b1 hold (2t..2t+1, g), (2t+8..2t+9, g); d as m16n8k8's.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The shared path of the bf16 form: the dots of every query of the tile
 // into S (kQ x D*D), as tile_dots.
 template <int R, typename T>

@@ -21,7 +21,9 @@
 // The forward's kernel, corr_fwd_kernel below, is one shell over two forms
 // of its paths: the float32 form (corr_fwd.cu) and the bf16 form
 // (corr_fwd_bf16.cu), each its own translation unit so that both build at
-// once.
+// once. The backward's, corr_bwd_kernel, is one kernel over three product
+// forms (3xTF32 on float32 maps, corr_bwd.cu; two TF32 passes or one bf16
+// pass, corr_bwd_bf16.cu), the same split into translation units.
 //
 // Products are mma.sync m16n8k8 in 3xTF32: both operands are activations,
 // split in registers after their shared-memory load (split_tf32 of
@@ -181,6 +183,17 @@ __device__ __forceinline__ bool choose_path(bool tile_width, int nb, int budget,
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b: one m16n8k16 bfloat16 product with f32 accumulation. a0..a3
+// hold (g, 2t..2t+1), (g + 8, 2t..2t+1), (g, 2t+8..2t+9), (g + 8,
+// 2t+8..2t+9); b0, b1 hold (2t..2t+1, g), (2t+8..2t+9, g); d as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -358,6 +371,554 @@ int fwd_entry(const void* fmap1, const void* const* levels, const int* hs, const
     err = rescale ? Widths::template launch<4, true>(a) : Widths::template launch<4, false>(a);
   } else if (radius == 3) {
     err = rescale ? Widths::template launch<3, true>(a) : Widths::template launch<3, false>(a);
+  }
+  return (int)err;
+}
+
+// -- the backward's shell -----------------------------------------------------
+//
+// The backward (corr_bwd.cu; its bf16 forms in corr_bwd_bf16.cu) folds the
+// window's cotangents of each query into one coefficient per neighbour,
+// coef[n] = dL/d(dot n), and then, for every in-range neighbour,
+//   df1[q]   += coef[n] * f2_l[n]
+//   df2_l[n] += coef[n] * f1[q]
+// into float32 buffers that hold zeros. A block is (tile, level), as in the
+// forward. Shared path: with G (64 x box) the dense coefficients of the
+// tile (zero where a pixel is not a query's neighbour),
+//   df1_tile (64 x C) = G . F2_box (box x C)
+//   df2_box (box x C) = G^T . F1_tile (64 x C)
+// in chunks of kBCC = 64 channels (outer) and kBNC = 64 box pixels (inner)
+// on mma.sync, 8 warps as 4 x 2 tiles of 16 x 32; each df2 chunk is
+// complete after its one product (K = the 64 queries) and is added to df2_l
+// with one 16-byte vector atomic per box pixel and channel quad; df1 sums
+// over the chunks in registers and over the levels by the same atomics.
+// Warp path (a larger box, or a width with no tile form): one warp per
+// query, lanes over C; each in-range neighbour's coefficient times the map
+// into df1 (registers) and, by a vector atomic, into df2_l.
+//
+// A form of the backward (a struct) supplies
+//   T                 the maps' type;
+//   kProduct          the shared path's products: Product::k3xTF32 (float32
+//                     maps), k2xTF32 (the coefficients split, bfloat16 maps
+//                     exact in TF32) or kBF16 (both operands rounded to
+//                     bfloat16, one m16n8k16 pass per 16 of K);
+//   kTpuOrder         the fold in the TPU kernel's order (the cotangent
+//                     scaled first, then the x side, then the y side) rather
+//                     than the four corner weights of each window in turn;
+//   kBf16Cotangent    whether the cotangent may be bfloat16 (a runtime flag);
+//   kAnyWidth         whether C may be any width of the float32 lookup, or
+//                     only 128 and 256 (RAFT-small's and RAFT-large's);
+//   coef(c)           the coefficient as the warp path multiplies it;
+//   load<Vec>(p)      Vec's floats of a map at p, as the products take them;
+//   stage4(dst, src, ok): four channels of a map into shared memory as
+//                     floats (zero unless ok), by cp.async where it can.
+
+constexpr int kBNC = 64;          // box pixels per chunk
+constexpr int kBCC = 64;          // channels per chunk
+constexpr int kLd = kBCC + 8;     // row stride of F1c, F2c, O (floats)
+constexpr int kLdg = kBNC + 8;    // row stride of G
+constexpr int kRowCopies = kQ * (kBCC / 4) / kThreads;  // 4-channel copies a thread a tile
+static_assert(kBNC == kQ, "F1c, F2c and O share a shape");
+static_assert(kRowCopies * kThreads == kQ * (kBCC / 4), "copies split evenly");
+
+enum class Product { k3xTF32, k2xTF32, kBF16 };
+
+struct LevelGrads {
+  float* ptr[kMaxLevels];
+};
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Two floats as the packed bfloat16 pair of an MMA fragment (lo = the lower
+// k), each rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The m16n8k16 A fragment of the 16 x 16 block at (m0, k0) of a float
+// matrix whose element (m, k) is at p[m * sm + k * sk], packed to bfloat16
+// pairs (mma_bf16's layout).
+__device__ __forceinline__ void load_a_bf16(const float* p, int sm, int sk, int m0, int k0,
+                                            uint32_t* a) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int m = m0 + g + 8 * (e & 1), k = k0 + 2 * t + 8 * (e >> 1);
+    a[e] = pack_bf16(p[m * sm + k * sk], p[m * sm + (k + 1) * sk]);
+  }
+}
+
+// The B fragment of the 16 x 8 block at (k0, n0) of a float matrix whose
+// element (k, n) is at p[k * sk + n * sn], packed to bfloat16 pairs.
+__device__ __forceinline__ void load_b_bf16(const float* p, int sk, int sn, int k0, int n0,
+                                            uint32_t* b) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = k0 + 2 * t + 8 * e;
+    b[e] = pack_bf16(p[k * sk + (n0 + g) * sn], p[(k + 1) * sk + (n0 + g) * sn]);
+  }
+}
+
+// One k8 step of a product whose B operand is exact in TF32 (a bfloat16
+// map): a split hi and lo, a_hi*b into a fresh sum added to `big` (as
+// mma_3xtf32), a_lo*b chained in `small`; what mma_3xtf32 gives, since
+// b's lo part is zero.
+__device__ __forceinline__ void mma_2xtf32(float* big, float* small, const uint32_t* ah,
+                                           const uint32_t* al, const uint32_t* bh) {
+  float step[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(step, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] += step[e];
+  mma_tf32(small, al, bh);
+}
+
+// One K step (8, or 16 for kBF16) of a warp's 16 x 32 block: big[nt] (and
+// small[nt]) += A (rows m0.., K k0..) . B (K k0.., columns n0 + 8 nt..),
+// A's element (m, k) at a[m * am + k * ak], B's (k, n) at b[k * bk + n * bn].
+template <Product P>
+__device__ __forceinline__ void product_step(float (*big)[4], float (*small)[4], const float* a,
+                                             int am, int ak, const float* b, int bk, int bn,
+                                             int m0, int n0, int k0) {
+  if constexpr (P == Product::kBF16) {
+    uint32_t af[4], bf[2];
+    load_a_bf16(a, am, ak, m0, k0, af);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      load_b_bf16(b, bk, bn, k0, n0 + 8 * nt, bf);
+      mma_bf16(big[nt], af, bf);
+    }
+  } else {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    load_a(a, am, ak, m0, k0, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      load_b(b, bk, bn, k0, n0 + 8 * nt, bh, bl);
+      if constexpr (P == Product::k3xTF32) {
+        mma_3xtf32(big[nt], small[nt], ah, al, bh, bl);
+      } else {
+        mma_2xtf32(big[nt], small[nt], ah, al, bh);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void fma_vec(float4& acc, const float s, const float4 v) {
+  acc.x += s * v.x;
+  acc.y += s * v.y;
+  acc.z += s * v.z;
+  acc.w += s * v.w;
+}
+
+__device__ __forceinline__ void fma_vec(float2& acc, const float s, const float2 v) {
+  acc.x += s * v.x;
+  acc.y += s * v.y;
+}
+
+__device__ __forceinline__ void fma_vec(float& acc, const float s, const float v) { acc += s * v; }
+
+__device__ __forceinline__ float4 scaled(const float s, const float4 v) {
+  return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
+}
+
+__device__ __forceinline__ float2 scaled(const float s, const float2 v) {
+  return make_float2(s * v.x, s * v.y);
+}
+
+__device__ __forceinline__ float scaled(const float s, const float v) { return s * v; }
+
+__device__ __forceinline__ float cotangent(const float* g, long long k) { return g[k]; }
+__device__ __forceinline__ float cotangent(const __nv_bfloat16* g, long long k) {
+  return __bfloat162float(g[k]);
+}
+
+// coef (kQ x D*D): the cotangent of every dot of the tile's queries at
+// level l, from the cotangent g (float32 or bfloat16, read as float32);
+// zero for a slot past the image or a centre that is not near. Window
+// (a, b) = (x index, y index) reads neighbour (a, b) with weight w00,
+// (a+1, b) with w10, (a, b+1) with w01 and (a+1, b+1) with w11.
+template <int R, bool kTpuOrder, typename G>
+__device__ void fold_cotangents(const TileQueries& t, const G* __restrict__ grad,
+                                int num_levels, int l, float inv_scale, float* coef) {
+  constexpr int D = 2 * R + 2;
+  constexpr int WIN = 2 * R + 1;
+  for (int idx = threadIdx.x; idx < kQ * D * D; idx += kThreads) {
+    const int qi = idx / (D * D);
+    const int n = idx % (D * D);
+    float c = 0.f;
+    if (t.q[qi] >= 0 && t.near[qi]) {
+      const long long off = t.q[qi] * (num_levels * WIN * WIN) + l * WIN * WIN;
+      const float dx = t.dx[qi], dy = t.dy[qi];
+      const int j = n / D;  // y index of the neighbour
+      const int i = n % D;  // x index
+      if constexpr (kTpuOrder) {
+        // U_b at this neighbour's x: window i - 1 with weight dx, window i
+        // with 1 - dx, for the window rows b = j - 1 and j; then g2 =
+        // U_{j-1} dy + U_j (1 - dy)
+        auto gs = [&](int a, int b) { return cotangent(grad, off + a * WIN + b) * inv_scale; };
+        float u_prev = 0.f, u_here = 0.f;
+        if (j > 0) {
+          if (i > 0) u_prev += gs(i - 1, j - 1) * dx;
+          if (i < WIN) u_prev += gs(i, j - 1) * (1.f - dx);
+        }
+        if (j < WIN) {
+          if (i > 0) u_here += gs(i - 1, j) * dx;
+          if (i < WIN) u_here += gs(i, j) * (1.f - dx);
+        }
+        c = u_prev * dy;
+        c += u_here * (1.f - dy);
+      } else {
+        auto gs = [&](int a, int b) { return cotangent(grad, off + a * WIN + b); };
+        const float w00 = (1.f - dx) * (1.f - dy);
+        const float w10 = dx * (1.f - dy);
+        const float w01 = (1.f - dx) * dy;
+        const float w11 = dx * dy;
+        if (i < WIN && j < WIN) c += w00 * gs(i, j);
+        if (i > 0 && j < WIN) c += w10 * gs(i - 1, j);
+        if (i < WIN && j > 0) c += w01 * gs(i, j - 1);
+        if (i > 0 && j > 0) c += w11 * gs(i - 1, j - 1);
+        c *= inv_scale;
+      }
+    }
+    coef[idx] = c;
+  }
+  __syncthreads();
+}
+
+// The shared path at one level: df1 and df2 of the tile through the box.
+template <int R, class Form>
+__device__ void tile_grads(const TileQueries& t, const typename Form::T* __restrict__ fmap1,
+                           const typename Form::T* __restrict__ f2, float* __restrict__ d2,
+                           int w2, int C, int nb, int bw, const float* coef,
+                           float* __restrict__ df1, float* smem) {
+  constexpr int D = 2 * R + 2;
+  constexpr int DD = D * D;
+  constexpr Product P = Form::kProduct;
+  constexpr int kK = P == Product::kBF16 ? 16 : 8;  // K of one product step
+  float* G = smem;                  // (query, box pixel of the chunk)
+  float* F1c = G + kQ * kLdg;       // (query, channel of the chunk)
+  float* F2c = F1c + kQ * kLd;      // (box pixel, channel)
+  float* O = F2c + kBNC * kLd;      // a finished (64 x kBCC) block on its way out
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = (warp >> 1) * 16;  // the warp's rows: queries (df1) or pixels (df2)
+  const int wc = (warp & 1) * 32;   // and channels of the chunk
+  const int c16 = tid & 15;         // this thread's 4-channel column of a copy
+  const int r0 = tid >> 4;          // and its first row, then every 16th
+  const int gp = tid & (kBNC - 1);  // this thread's pixel of G
+  for (int c0 = 0; c0 < C; c0 += kBCC) {
+#pragma unroll
+    for (int i = 0; i < kRowCopies; ++i) {
+      const int row = r0 + 16 * i;
+      const bool ok = t.q[row] >= 0;
+      Form::stage4(F1c + row * kLd + 4 * c16, fmap1 + (ok ? t.q[row] * C : 0) + c0 + 4 * c16, ok);
+    }
+    cp_async_commit();
+    float d1[4][4], d1s[4][4];  // the big and small sums (kBF16: d1 only)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d1[nt][e] = d1s[nt][e] = 0.f;
+    for (int n0 = 0; n0 < nb; n0 += kBNC) {
+#pragma unroll
+      for (int i = 0; i < kRowCopies; ++i) {
+        const int row = r0 + 16 * i;
+        const int pix = n0 + row;
+        const bool ok = pix < nb;
+        const long long off =
+            ok ? ((long long)(t.box[1] + pix / bw) * w2 + t.box[0] + pix % bw) * C : 0;
+        Form::stage4(F2c + row * kLd + 4 * c16, f2 + off + c0 + 4 * c16, ok);
+      }
+      cp_async_commit();
+      {
+        const int pix = n0 + gp;
+        const bool in = pix < nb;
+        const int px = in ? t.box[0] + pix % bw : 0;
+        const int py = in ? t.box[1] + pix / bw : 0;
+#pragma unroll 4
+        for (int k = 0; k < kQ / (kThreads / kBNC); ++k) {
+          const int qi = tid / kBNC + (kThreads / kBNC) * k;
+          const int i = px - t.x0[qi];
+          const int j = py - t.y0[qi];
+          G[qi * kLdg + gp] = (in && t.near[qi] && (unsigned)i < D && (unsigned)j < D)
+                                  ? coef[qi * DD + j * D + i]
+                                  : 0.f;
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // G, F2c (and F1c) in place for every thread
+      const int kmax = min(kBNC, nb - n0);  // pixels of the chunk in the box
+      float d2c[4][4], d2s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d2c[nt][e] = d2s[nt][e] = 0.f;
+      if (wr < kmax) {  // warp-uniform: its 16 pixel rows are not all padding
+        // df2 chunk (pixel, channel) = G^T (pixel, query) . F1c (query, channel)
+#pragma unroll 2
+        for (int k0 = 0; k0 < kQ; k0 += kK) {
+          product_step<P>(d2c, d2s, G, 1, kLdg, F1c, kLd, 1, wr, wc, k0);
+        }
+      }
+      // df1 (query, channel) += G (query, pixel) . F2c (pixel, channel); the
+      // pixels past the box are zero in G and F2c
+      for (int k0 = 0; k0 < kmax; k0 += kK) {
+        product_step<P>(d1, d1s, G, kLdg, 1, F2c, kLd, 1, wr, wc, k0);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(O + (wr + g + 8 * h) * kLd + wc + 8 * nt + 2 * tq) =
+              make_float2(d2c[nt][2 * h] + d2s[nt][2 * h], d2c[nt][2 * h + 1] + d2s[nt][2 * h + 1]);
+        }
+      __syncthreads();  // the df2 chunk is in O
+#pragma unroll
+      for (int i = 0; i < kRowCopies; ++i) {
+        const int row = r0 + 16 * i;
+        const int pix = n0 + row;
+        if (pix < nb) {
+          const long long off =
+              ((long long)(t.box[1] + pix / bw) * w2 + t.box[0] + pix % bw) * C;
+          atomicAdd(reinterpret_cast<float4*>(d2 + off + c0 + 4 * c16),
+                    *reinterpret_cast<const float4*>(O + row * kLd + 4 * c16));
+        }
+      }
+      __syncthreads();  // G, F2c and O are rewritten by the next chunk
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(O + (wr + g + 8 * h) * kLd + wc + 8 * nt + 2 * tq) =
+            make_float2(d1[nt][2 * h] + d1s[nt][2 * h], d1[nt][2 * h + 1] + d1s[nt][2 * h + 1]);
+      }
+    __syncthreads();  // the tile's df1 block is in O
+#pragma unroll
+    for (int i = 0; i < kRowCopies; ++i) {
+      const int row = r0 + 16 * i;
+      if (t.q[row] >= 0 && t.near[row]) {
+        atomicAdd(reinterpret_cast<float4*>(df1 + t.q[row] * C + c0 + 4 * c16),
+                  *reinterpret_cast<const float4*>(O + row * kLd + 4 * c16));
+      }
+    }
+    __syncthreads();  // F1c and O are rewritten by the next channel chunk
+  }
+}
+
+// The warp path: warp w takes query slots w, w + kWarps, ...; lane l holds
+// the Vecs l + 32 v, v < NV, of each row (kMasked: the lanes past C none).
+template <int R, int NV, typename Vec, bool kMasked, class Form>
+__device__ void warp_grads(const TileQueries& t, const typename Form::T* __restrict__ fmap1,
+                           const typename Form::T* __restrict__ f2, float* __restrict__ d2,
+                           int h2, int w2, int C, const float* coef_all,
+                           float* __restrict__ df1) {
+  constexpr int D = 2 * R + 2;
+  constexpr int kLen = sizeof(Vec) / sizeof(float);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int qi = warp; qi < kQ; qi += kWarps) {
+    const long long q = t.q[qi];
+    if (q < 0 || !t.near[qi]) continue;  // warp-uniform
+    const float* coef = coef_all + qi * D * D;
+    Vec a[NV];
+    Vec acc[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int ch = kLen * (lane + 32 * v);
+      a[v] = (!kMasked || ch < C) ? Form::template load<Vec>(fmap1 + q * C + ch) : Vec{};
+      acc[v] = Vec{};
+    }
+    const int x0 = t.x0[qi];
+    const int y0 = t.y0[qi];
+    for (int j = 0; j < D; ++j) {
+      const int yy = y0 + j;
+      if (yy < 0 || yy >= h2) continue;  // uniform across the warp
+      for (int i = 0; i < D; ++i) {
+        const int xx = x0 + i;
+        float c = coef[j * D + i];
+        if (xx < 0 || xx >= w2 || c == 0.f) continue;
+        c = Form::coef(c);
+        const long long off = ((long long)yy * w2 + xx) * C;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int ch = kLen * (lane + 32 * v);
+          if (!kMasked || ch < C) {
+            fma_vec(acc[v], c, Form::template load<Vec>(f2 + off + ch));
+            atomicAdd(reinterpret_cast<Vec*>(d2 + off + ch), scaled(c, a[v]));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int ch = kLen * (lane + 32 * v);
+      if (!kMasked || ch < C) atomicAdd(reinterpret_cast<Vec*>(df1 + q * C + ch), acc[v]);
+    }
+  }
+}
+
+// One block of the backward: the tile and its box at level blockIdx.y, the
+// fold, and the path. The width is C = 32 NV floats of Vec, or `channels`
+// (kMasked: under 128, warp path only).
+template <int R, int NV, typename Vec, bool kMasked, class Form>
+__global__ void __launch_bounds__(kThreads, 2)
+corr_bwd_kernel(const typename Form::T* __restrict__ fmap1, const Levels lv,
+                const int num_levels, const float* __restrict__ coords,
+                const void* __restrict__ grad, const int grad_bf16, float* __restrict__ df1,
+                const LevelGrads dlv, const int H, const int W, const int channels,
+                const int rescale, const float inv_scale, const int budget,
+                Count* __restrict__ path_counts) {
+  using T = typename Form::T;
+  constexpr int D = 2 * R + 2;
+  extern __shared__ float4 smem4[];
+  float* coef = reinterpret_cast<float*>(smem4);  // kQ x D*D
+  __shared__ TileQueries t;
+  const int C = kMasked ? channels : 32 * NV * (int)(sizeof(Vec) / sizeof(float));
+  const int l = blockIdx.y;
+  const int h2 = lv.h[l], w2 = lv.w[l];
+  if (rescale) {
+    load_tile<R, true>(t, coords, H, W, l, h2, w2);
+  } else {
+    load_tile<R, false>(t, coords, H, W, l, h2, w2);
+  }
+  int bw;
+  const int nb = box_pixels(t, bw);
+  const long long base = (long long)t.b * h2 * w2 * C;
+  const T* f2 = reinterpret_cast<const T*>(lv.ptr[l]) + base;
+  float* d2 = dlv.ptr[l] + base;
+  const bool shared = choose_path(!kMasked, nb, budget, path_counts);
+  if (nb == 0) return;  // no query of the tile has a neighbour on this level
+  if (Form::kBf16Cotangent && grad_bf16) {
+    fold_cotangents<R, Form::kTpuOrder>(t, static_cast<const __nv_bfloat16*>(grad), num_levels,
+                                        l, inv_scale, coef);
+  } else {
+    fold_cotangents<R, Form::kTpuOrder>(t, static_cast<const float*>(grad), num_levels, l,
+                                        inv_scale, coef);
+  }
+  if (!shared) {
+    warp_grads<R, NV, Vec, kMasked, Form>(t, fmap1, f2, d2, h2, w2, C, coef, df1);
+    return;
+  }
+  if constexpr (!kMasked) {
+    tile_grads<R, Form>(t, fmap1, f2, d2, w2, C, nb, bw, coef, df1, coef + kQ * D * D);
+  }
+}
+
+// Dynamic shared memory: coef, then the shared path's G, F1c, F2c and O.
+template <int R, bool kMasked>
+constexpr int bwd_smem_bytes() {
+  return (kQ * (2 * R + 2) * (2 * R + 2) +
+          (kMasked ? 0 : kQ * kLdg + kQ * kLd + 2 * kBNC * kLd)) * 4;
+}
+
+// A backward launch's arguments, checked by bwd_entry.
+struct BwdArgs {
+  const void* fmap1;
+  Levels lv;
+  int num_levels;
+  const float* coords;
+  const void* grad;
+  int grad_bf16;
+  float* df1;
+  LevelGrads dlv;
+  int H, W, channels, rescale;
+  float inv_scale;
+  int budget;
+  Count* path_counts;
+  dim3 grid;
+  cudaStream_t stream;
+};
+
+template <int R, int NV, typename Vec, bool kMasked, class Form>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  using T = typename Form::T;
+  auto kernel = corr_bwd_kernel<R, NV, Vec, kMasked, Form>;
+  constexpr int bytes = bwd_smem_bytes<R, kMasked>();
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<a.grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.fmap1), a.lv, a.num_levels, a.coords, a.grad, a.grad_bf16, a.df1,
+      a.dlv, a.H, a.W, a.channels, a.rescale, a.inv_scale, a.budget, a.path_counts);
+  return cudaGetLastError();
+}
+
+// The widths, with the forward's lanes (corr_fwd.cu): C a multiple of 128:
+// NV = C / 128 float4s a lane; C = 64 or 192: NV = C / 64 float2s a lane;
+// another C under 128: NV = ceil(C / 32) masked floats a lane. A form
+// without kAnyWidth takes 128 and 256 only.
+template <int R, class Form>
+cudaError_t launch_bwd_width(const BwdArgs& a) {
+  switch (a.channels) {
+    case 128: return launch_bwd<R, 1, float4, false, Form>(a);
+    case 256: return launch_bwd<R, 2, float4, false, Form>(a);
+    default: break;
+  }
+  if constexpr (Form::kAnyWidth) {
+    switch (a.channels) {
+      case 64: return launch_bwd<R, 1, float2, false, Form>(a);
+      case 192: return launch_bwd<R, 3, float2, false, Form>(a);
+      case 384: return launch_bwd<R, 3, float4, false, Form>(a);
+      case 512: return launch_bwd<R, 4, float4, false, Form>(a);
+      default: break;
+    }
+    if (a.channels < 1 || a.channels >= 128) return cudaErrorInvalidValue;
+    switch ((a.channels + 31) / 32) {
+      case 1: return launch_bwd<R, 1, float, true, Form>(a);
+      case 2: return launch_bwd<R, 2, float, true, Form>(a);
+      case 3: return launch_bwd<R, 3, float, true, Form>(a);
+      default: return launch_bwd<R, 4, float, true, Form>(a);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The backward entries' body: checks the arguments and runs
+// Forms::launch<R>(args, maps_bf16, mxu_bf16), which picks the form, at
+// radius 4 or 3. Returns a cudaError_t (0 on success).
+template <class Forms>
+int bwd_entry(const void* fmap1, const void* const* levels, const int* hs, const int* ws,
+              int num_levels, const void* coords, const void* grad, void* df1,
+              void* const* dlevels, int batch, int height, int width, int channels, int radius,
+              int rescale, float inv_scale, int budget, int maps_bf16, int grad_bf16,
+              int mxu_bf16, void* path_counts, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || channels < 1 || batch < 0 ||
+      height < 0 || width < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)batch * height * width == 0) return 0;
+  BwdArgs a;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    a.lv.ptr[l] = static_cast<const float*>(levels[l]);
+    a.lv.h[l] = hs[l];
+    a.lv.w[l] = ws[l];
+    a.dlv.ptr[l] = static_cast<float*>(dlevels[l]);
+  }
+  a.fmap1 = fmap1;
+  a.num_levels = num_levels;
+  a.coords = static_cast<const float*>(coords);
+  a.grad = grad;
+  a.grad_bf16 = grad_bf16;
+  a.df1 = static_cast<float*>(df1);
+  a.H = height;
+  a.W = width;
+  a.channels = channels;
+  a.rescale = rescale;
+  a.inv_scale = inv_scale;
+  a.budget = budget;
+  a.path_counts = static_cast<Count*>(path_counts);
+  a.grid = dim3((unsigned)tiles_of(batch, height, width), (unsigned)num_levels);
+  a.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (radius == 4) {
+    err = Forms::template launch<4>(a, maps_bf16, mxu_bf16);
+  } else if (radius == 3) {
+    err = Forms::template launch<3>(a, maps_bf16, mxu_bf16);
   }
   return (int)err;
 }

@@ -17,9 +17,11 @@ the lookup the sparse family was trained with.
 
 Mixed precision (``RAFTConfig.corr_storage``/``corr_mxu``): the all-pairs
 volume and its pooling are always computed in float32 and only stored in
-``storage``; the lookup reads the levels back as float32. The on-demand
-lookup takes bfloat16 feature maps as they come, multiplies in
-``mxu_dtype`` with float32 sums and emits ``out_dtype``.
+``storage``; the lookup reads the levels back as float32, and autograd
+differentiates it in plain PyTorch. The on-demand lookup takes bfloat16
+feature maps as they come, multiplies in ``mxu_dtype`` with float32 sums
+and emits ``out_dtype``; in training its backward is the bf16 kernel on
+the card.
 """
 
 from __future__ import annotations
@@ -109,14 +111,17 @@ def alternate_lookup(fmap1: torch.Tensor, pyramid2, coords: torch.Tensor,
     size gives zero windows either way. ``mxu_dtype`` ("float32" or
     "bfloat16") is the products' operand dtype, ``out_dtype`` the windows'
     (``corr_cuda.windowed_correlation_bf16``; on the card, the maps').
-    bfloat16 maps take the bf16 path whatever ``mxu_dtype`` says: their
-    products are exact in either form."""
+    bfloat16 maps take the bf16 forms whatever ``mxu_dtype`` says: their
+    forward products are exact in either form, and the backward multiplies
+    the cotangents in ``mxu_dtype``. Differentiable on both devices (no
+    gradient for ``coords`` on the card)."""
     if mxu_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"mxu_dtype must be 'float32' or 'bfloat16', got "
                          f"{mxu_dtype!r}")
     if mxu_dtype == "bfloat16" or fmap1.dtype == torch.bfloat16:
         return corr_cuda.windowed_correlation_bf16(
-            fmap1, pyramid2, coords, radius, scale, rescale, out_dtype)
+            fmap1, pyramid2, coords, radius, scale, rescale, out_dtype,
+            mxu_dtype)
     return corr_cuda.windowed_correlation_fused(
         fmap1, pyramid2, coords, radius, scale, rescale).to(out_dtype)
 

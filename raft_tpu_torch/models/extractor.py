@@ -18,8 +18,10 @@ selects batch statistics in the batch norms (``BatchNorm``); the module's
 The encoders compute in the dtype of their input, as flax's do in their
 ``dtype``: a bfloat16 image (the mixed-precision policy) runs every
 convolution in bfloat16 on weights cast from the float32 parameters
-(``conv``), and every norm takes its statistics and normalises in float32
-and returns bfloat16, flax's ``_compute_stats``/``_normalize``.
+(``conv``; in training the cast is in the autograd graph), and every norm
+takes its statistics and normalises in float32 and returns bfloat16,
+flax's ``_compute_stats``/``_normalize``; batch norm's running statistics
+stay float32.
 """
 
 from __future__ import annotations
@@ -47,14 +49,21 @@ def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     over float32 parameters: the convolution of bfloat16 operands (float32
     sums) rounded to bfloat16, then the bfloat16 bias added in bfloat16. A
     bias fused into the convolution would be added before the rounding and
-    move many outputs by one ulp. The bfloat16 weight and bias are cast
-    once and cached on the layer (``cached_weights``), detached: the
-    bfloat16 policy runs in inference only."""
+    move many outputs by one ulp. Where autograd wants a gradient of the
+    parameters (training), the bfloat16 weight and bias are cast in the
+    graph, so that the gradients reach the float32 parameters, as flax's
+    do through its cast; elsewhere (inference) they are cast once and
+    cached on the layer (``cached_weights``), detached."""
     if x.dtype == layer.weight.dtype:
         return layer(x)
-    weight, bias = cached_weights(
-        layer, lambda m: (m.weight.detach().to(x.dtype),
-                          m.bias.detach().to(x.dtype)), f"_cast_{x.dtype}")
+    if torch.is_grad_enabled() and (layer.weight.requires_grad
+                                    or layer.bias.requires_grad):
+        weight, bias = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+    else:
+        weight, bias = cached_weights(
+            layer, lambda m: (m.weight.detach().to(x.dtype),
+                              m.bias.detach().to(x.dtype)),
+            f"_cast_{x.dtype}")
     y = F.conv2d(x, weight, None, layer.stride, layer.padding)
     return y + bias[:, None, None]
 

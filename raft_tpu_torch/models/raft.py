@@ -21,12 +21,17 @@ radius 3, is the corr kernel. The correlation engine is the materialised
 all-pairs pyramid or the on-demand lookup (``alternate_corr``), whose CUDA
 path is the kernels of ``ops/corr_cuda.py``.
 
-Mixed precision (``RAFTConfig.mixed_precision``, inference only): the
-encoders and the update block compute in bfloat16 with float32 parameters;
-the correlation payload follows ``RAFTConfig.corr_storage`` (the all-pairs
-pyramid's storage) and ``corr_mxu`` (the on-demand lookup's products, which
-emits bfloat16 windows); coordinates, flow and the early exit's norms stay
-float32, and every output comes back float32, as in the JAX package.
+Mixed precision (``RAFTConfig.mixed_precision``, RAFT-large): the
+encoders and the update block compute in bfloat16 with float32 parameters,
+in inference and in training; the correlation payload follows
+``RAFTConfig.corr_storage`` (the all-pairs pyramid's storage) and
+``corr_mxu`` (the on-demand lookup's products, which emits bfloat16
+windows), each resolved for inference or training as in the JAX package;
+coordinates, flow, the upsampled predictions and the early exit's norms
+stay float32, and every output comes back float32. On the card a training
+forward runs the bf16 corr and step kernels, and their backwards (the bf16
+corr backward kernel, the step's bfloat16 recompute) give the float32
+parameters their gradients.
 
 Serving: ``early_exit=(tol, patience)`` freezes each sample once its
 low-res update has stayed small; ``encode_features`` and the
@@ -151,29 +156,28 @@ class RAFT(nn.Module):
         B, H8, W8, _ = fmap1.shape
         return payload, net, inp, coords_grid(B, H8, W8, device=fmap1.device)
 
-    def _lookup(self, payload, coords: torch.Tensor) -> torch.Tensor:
+    def _lookup(self, payload, coords: torch.Tensor,
+                inference: bool = True) -> torch.Tensor:
         """The windowed lookup at ``coords`` through the engine that built
         ``payload`` (see ``_prologue``), in the compute dtype. The on-demand
-        lookup multiplies in ``corr_mxu(inference=True)``: a forward that
-        trains refuses bf16 products (``forward``), so no training run
-        reaches the rule's other branch."""
+        lookup multiplies in ``corr_mxu(inference)``."""
         cfg = self.config
         if len(payload) == 2 and isinstance(payload[1], tuple):
             return alternate_lookup(payload[0], payload[1],
                                     coords.contiguous(), cfg.radius,
                                     cfg.corr_scale,
-                                    mxu_dtype=cfg.corr_mxu(inference=True),
+                                    mxu_dtype=cfg.corr_mxu(inference),
                                     out_dtype=self.compute_dtype)
         return pyramid_lookup(payload, coords,
                               cfg.radius).to(self.compute_dtype)
 
     def _iteration(self, payload, net, inp, coords0, coords1, last: bool,
-                   update_impl: str):
+                   update_impl: str, inference: bool = True):
         """One refinement iteration: ``(net, mask or None, delta_flow)``;
         the mask head runs only when ``last``. The update block takes the
         flow in the compute dtype; the mask and delta come back float32."""
         net, mask, delta = self.update_block(
-            net, inp, self._lookup(payload, coords1),
+            net, inp, self._lookup(payload, coords1, inference),
             (coords1 - coords0).to(self.compute_dtype),
             compute_mask=True if last else None, update_impl=update_impl)
         return net, None if mask is None else mask.float(), delta.float()
@@ -216,10 +220,6 @@ class RAFT(nn.Module):
             raise ValueError(f"iters must be >= 1, got {iters}")
         if early_exit is not None and train:
             raise ValueError("early_exit is a test-mode-only knob")
-        if train and (cfg.mixed_precision or cfg.corr_mxu_dtype == "bfloat16"):
-            raise NotImplementedError(
-                "bf16 training (mixed_precision or corr_mxu_dtype='bfloat16') "
-                "is not ported yet: it needs the bf16 backward kernels")
         payload, net, inp, coords0 = self._prologue(
             image1, image2, fmap1, fmap2, alternate_corr,
             train and not freeze_bn, not train)
@@ -230,7 +230,8 @@ class RAFT(nn.Module):
             for _ in range(iters):
                 coords1 = coords1.detach()
                 net, mask, delta_flow = self._iteration(
-                    payload, net, inp, coords0, coords1, True, update_impl)
+                    payload, net, inp, coords0, coords1, True, update_impl,
+                    inference=False)
                 coords1 = coords1 + delta_flow
                 predictions.append(_upsample(coords1 - coords0, mask))
             return torch.stack(predictions)

@@ -19,8 +19,10 @@ reference either: its convolutions are ``nn.Conv2d`` (cuDNN on the card).
 
 ``BasicUpdateBlock`` computes in the dtype of ``net``: bfloat16 under the
 mixed-precision policy, through the step kernel's bf16 form and bfloat16
-heads on cuDNN (``extractor.conv``), with float32 parameters. The chain's
-kernels have no bf16 form yet, so ``update_impl="chain"`` refuses it.
+heads on cuDNN (``extractor.conv``), with float32 parameters, which
+receive their gradients in training (the step's recompute and the heads
+cast them in the graph). The chain's kernels have no bf16 form yet, so
+``update_impl="chain"`` refuses it, in inference and in training.
 """
 
 from __future__ import annotations

@@ -24,8 +24,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
-KERNELS = ("corr_fwd", "corr_fwd_bf16", "corr_bwd", "sepconv_gru",
-           "motion_fwd", "update_step", "msda_fwd", "msda_bwd")
+KERNELS = ("corr_fwd", "corr_fwd_bf16", "corr_bwd", "corr_bwd_bf16",
+           "sepconv_gru", "motion_fwd", "update_step", "msda_fwd",
+           "msda_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

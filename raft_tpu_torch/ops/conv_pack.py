@@ -61,14 +61,16 @@ def split_tf32(x: torch.Tensor) -> torch.Tensor:
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            padding=0) -> torch.Tensor:
     """``F.conv2d`` of NCHW ``x`` in its dtype. float32: as it is.
-    bfloat16 (the JAX kernels' compute dtype): the float32 convolution of
-    ``x`` with the weight rounded to bfloat16, its sum rounded to bfloat16,
-    then the bfloat16 bias added in bfloat16, the flax ``Conv`` contract at
-    ``dtype=bfloat16``."""
+    bfloat16 (the JAX kernels' compute dtype): the bfloat16 convolution of
+    ``x`` with the weight rounded to bfloat16 (float32 sums rounded to
+    bfloat16: cuDNN on the card, oneDNN on the CPU), then the bfloat16 bias
+    added in bfloat16, the flax ``Conv`` contract at ``dtype=bfloat16``
+    (``extractor.conv`` for the encoders). The weight is cast in the
+    autograd graph: its gradient reaches the float32 parameter."""
     if x.dtype == torch.float32:
         return F.conv2d(x, weight, bias, padding=padding)
-    y = F.conv2d(x.float(), weight.to(x.dtype).float(), padding=padding)
-    return y.to(x.dtype) + bias.to(x.dtype)[:, None, None]
+    y = F.conv2d(x, weight.to(x.dtype), padding=padding)
+    return y + bias.to(x.dtype)[:, None, None]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,13 @@ The kernel's bf16 form (``fused_step_cuda`` on bfloat16 tensors, the JAX
 kernel at ``dtype=bfloat16``) takes bfloat16 activations and the weights
 packed by ``pack_bf16`` and returns bfloat16 h2 and delta; it rounds where
 the JAX kernel rounds (``csrc/conv_phase.cuh``). Its plain version is
-``fused_step_plain`` on bfloat16 inputs (``conv_pack.conv2d``). It runs in
-inference only and counts its launches in ``bf16_launches``.
+``fused_step_plain`` on bfloat16 inputs (``conv_pack.conv2d``), which is
+also its backward: ``fused_step`` routes it through
+``fused_step_autograd`` as it routes the float32 form, and the recompute's
+bfloat16 convolutions cast the float32 weights in the graph, so the
+gradients reach the float32 parameters (the JAX ``_step_bwd`` recomputes
+through its bf16 ``reference_step`` the same way). It counts its launches
+in ``bf16_launches``.
 """
 
 from __future__ import annotations
@@ -120,18 +125,14 @@ def fused_step_cuda(net, inp, corr, flow, packed):
     contiguous, on one CUDA device; C a multiple of 64, Ci of 16, Cc of 4;
     ``packed`` from the ``pack_*`` functions of that dtype's form
     (``pack_bf16`` for bfloat16). Returns h2 (B, H, W, C), or ``(h2, delta
-    (B, H, W, 2))`` when ``packed[2]`` is not None, in ``net``'s dtype. The
-    bf16 form runs forward only: it refuses inputs that need a gradient.
+    (B, H, W, 2))`` when ``packed[2]`` is not None, in ``net``'s dtype.
+    Forward only: ``fused_step_autograd`` gives either form its gradient.
     """
     global launches, bf16_launches
     if net.device.type != "cuda":
         raise ValueError(f"the step kernel needs CUDA tensors, got "
                          f"{net.device}")
     bf16 = net.dtype == torch.bfloat16
-    if bf16 and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (net, inp, corr, flow)):
-        raise NotImplementedError("the bf16 step backward is not ported; "
-                                  "the bf16 form runs in inference only")
     B, H, W, C = net.shape
     ci, cc = inp.shape[-1], corr.shape[-1]
     if C % 64 or ci % 16 or cc % 4:
@@ -197,12 +198,11 @@ def fused_step(net, inp, corr, flow, convs, packed):
     """One refine iteration: the plain version (``convs``) for a CPU
     tensor, the CUDA kernel (``packed``) for a CUDA tensor, differentiable
     either way; for bfloat16 tensors the kernel's bf16 form (``packed``
-    from ``pack_bf16``), forward only. The depth is ``'mgf'`` when the head
-    entry of the triples is not None."""
+    from ``pack_bf16``). The packed weights feed only the kernel; the
+    gradients come from the raw ``convs``. The depth is ``'mgf'`` when the
+    head entry of the triples is not None."""
     if net.device.type == "cpu":
         return fused_step_plain(net, inp, corr, flow, convs)
-    if net.dtype == torch.bfloat16:
-        return fused_step_cuda(net, inp, corr, flow, packed)
     return fused_step_autograd(
         net, inp, corr, flow, convs,
         lambda *a: fused_step_cuda(*a, packed))

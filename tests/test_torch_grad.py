@@ -94,7 +94,8 @@ def _inject_plain(monkeypatch):
     monkeypatch.setattr(
         corr_cuda, "windowed_correlation_fused",
         lambda f1, pyr, c, r, scale=True, rescale=True: corr_cuda
-        .WindowedCorrelationFn.apply(f1, c, r, scale, rescale, *pyr))
+        .WindowedCorrelationFn.apply(f1, c, r, scale, rescale, "float32",
+                                     *pyr))
     monkeypatch.setattr(
         step_cuda, "fused_step",
         lambda net, inp, cor, flo, convs, packed: step_cuda

@@ -547,10 +547,12 @@ def test_bf16_storage_trains_through_the_pyramid(frames):
 
 def test_mixed_predictor_and_refusals(frames):
     """``load_predictor(mixed_precision=)`` builds the policy's model with
-    the float32 weights (``corr_dtype`` pins the fixed engine, as in JAX);
-    what stays unported refuses: bf16 training (``train`` and the training
-    forward), an explicit ``corr_mxu_dtype="bfloat16"`` in training, and
-    the sparse family's bf16."""
+    the float32 weights (``corr_dtype`` pins the fixed engine, as in JAX),
+    whose training forward returns float32 predictions; what stays
+    unported refuses: ``update_impl="chain"`` under the policy in training
+    (``train`` and the training forward, also with an explicit
+    ``corr_mxu_dtype="bfloat16"``), RAFT-small under the policy, and the
+    sparse family's bf16."""
     pred = evaluate.load_predictor(WEIGHTS, iters=2, device="cpu",
                                    mixed_precision=True)
     cfg = pred.model.config
@@ -561,15 +563,21 @@ def test_mixed_predictor_and_refusals(frames):
     pinned = evaluate.load_predictor(WEIGHTS, device="cpu",
                                      corr_dtype="bfloat16", corr_impl=None)
     assert pinned.model.config.corr_storage(True) == "bfloat16"
-    with pytest.raises(NotImplementedError, match="bf16 training"):
+    preds = pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True)
+    assert preds.dtype == torch.float32 and preds.shape == (1, 1, 64, 96, 2)
+    with pytest.raises(NotImplementedError, match="chain"):
         train(TrainConfig(num_steps=1), RAFTConfig(mixed_precision=True),
-              dataloader=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 training"):
+              dataloader=[], device="cpu", update_impl="chain")
+    with pytest.raises(NotImplementedError, match="chain"):
         train(TrainConfig(num_steps=1), RAFTConfig(
-            alternate_corr=True, corr_mxu_dtype="bfloat16"),
-            dataloader=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True)
+            mixed_precision=True, alternate_corr=True,
+            corr_mxu_dtype="bfloat16"),
+            dataloader=[], device="cpu", update_impl="chain")
+    with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
+        pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True,
+                   update_impl="chain")
+    with pytest.raises(NotImplementedError, match="RAFT-small"):
+        RAFT(RAFTConfig(small=True, mixed_precision=True))
     with pytest.raises(NotImplementedError, match="bf16 policy"):
         evaluate.load_predictor("random", model_family="sparse",
                                 mixed_precision=True, device="cpu")

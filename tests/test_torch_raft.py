@@ -299,7 +299,8 @@ def test_iters_and_unported_configs_raise(port_model, frames):
     small = RAFT(RAFTConfig(small=True))
     assert small.update_block.encoder.convc1.in_channels == 4 * 7 * 7
     # the bf16 policy builds and returns float32 flows; what it does not
-    # port yet (the chain's bf16 kernels, bf16 training) refuses
+    # port yet (the chain's bf16 kernels, in inference and in training;
+    # RAFT-small under the policy) refuses
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train import train
 
@@ -312,9 +313,13 @@ def test_iters_and_unported_configs_raise(port_model, frames):
         with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
             mixed(_t(frames[0]), _t(frames[1]), iters=1, update_impl="chain")
     for cfg in (RAFTConfig(mixed_precision=True),
-                RAFTConfig(alternate_corr=True, corr_mxu_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="bf16 training"):
-            train(TrainConfig(num_steps=1), cfg, dataloader=[], device="cpu")
+                RAFTConfig(mixed_precision=True, alternate_corr=True,
+                           corr_mxu_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="chain"):
+            train(TrainConfig(num_steps=1), cfg, dataloader=[], device="cpu",
+                  update_impl="chain")
+    with pytest.raises(NotImplementedError, match="RAFT-small"):
+        RAFT(RAFTConfig(small=True, mixed_precision=True))
     with pytest.raises(ValueError):
         RAFT(RAFTConfig(normalized_coords=True))
 

@@ -329,7 +329,7 @@ def test_fork_lookup_gradients_match_jax(channels, monkeypatch):
 
     def function_route(a, pyr, c, r, rescale):
         return corr_cuda.WindowedCorrelationFn.apply(a, c, r, True, rescale,
-                                                     *pyr)
+                                                     "float32", *pyr)
 
     for route in (corr_cuda.windowed_correlation_fused, function_route):
         if route is function_route:
