@@ -69,12 +69,23 @@ and update_step (both depths, at the Sintel shape and on the served
 model's own B=2 state) against their plain versions and their SASS for
 bf16 tensor-core MMAs, the step-granular refine in chunks against
 dispatch_batch and a warm frame from encoded maps against the pair call,
-the goldens through two routes (the all-pairs
-pyramid stored in bfloat16, and the bf16 corr form) against
+the goldens through three routes (the all-pairs
+pyramid stored in bfloat16, the bf16 corr form, and the bf16 corr form on
+``update_impl="chain"``) against
 ``assets/golden/cpu_reference.json``'s band, five Sintel pairs served at
 iters=32 with both bf16 forms once an iteration (ms/pair beside the float32
 path's), one pair profiled, and both forms timed (``corr_fwd_bf16`` and
 ``update_step_bf16`` rows, the latter beside cuDNN's bf16 convolutions).
+On ``update_impl="chain"`` under the policy (phase ``mixed chain``): the
+bf16 forms of motion_fwd and sepconv_gru against their plain versions on
+Sintel inputs and on the served B=2 state, with the float32 forms on the
+same values as the control, two Sintel pairs beside the step route's
+ms/pair, both forms timed (rows ``motion_fwd_bf16`` and
+``sepconv_gru_bf16``, beside their bf16 bound and cuDNN's bf16
+convolutions). RAFT-small under the policy (phase ``mixed small``): its
+goldens on both engines (the bf16 corr form at r=3, C=128, and the
+pyramid stored in bfloat16) against the JAX package's own aggregate
+(``SMALL_MIXED_GT_CPU``), five Sintel pairs beside float32 RAFT-small's.
 RAFT-large training under the policy (phase ``mixed train``): the bf16
 corr backward against its plain version at the chairs (B=8) and Sintel
 shapes (C=256 r=4, C=128 r=3), coherent and incoherent flows, in its three
@@ -85,7 +96,10 @@ against the plain route with ``mixed_precision=True`` and with
 ``corr_mxu_dtype="bfloat16"``; seven chairs-size steps through ``train()``
 under the policy on the float32 run's weights and batches (each step's
 loss beside the float32 one's; corr_fwd_bf16, corr_bwd_bf16 and
-update_step_bf16 12 a step), one of them profiled.
+update_step_bf16 12 a step), one of them profiled; on the chain (phase
+``mixed chain train``) a B=2 train step against the plain route and
+seven chairs-size steps beside the step route's (motion_fwd_bf16 and
+sepconv_gru_bf16 12 a step).
 The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
 card it exits non-zero at once.
@@ -748,7 +762,8 @@ def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
     """Every kernel's dispatcher replaced by its plain version (autograd
     through plain PyTorch), for the duration: the reference the kernel
     route is held against on the card. ``perturb``: a generator; the
-    lookup's, the step's and the MSDA core's outputs are then multiplied by
+    lookup's, the step's (or the chain's motion and GRU), and the MSDA
+    core's outputs are then multiplied by
     1 + ``scale`` * N(0, 1) from it (in float32, a bfloat16 output rounded
     back)."""
     def noisy(out):
@@ -775,11 +790,11 @@ def plain_route(corr_cuda, step_cuda, motion_cuda, gru_cuda, msda,
             lambda net, inp, corr, flow, convs, packed: noisy(
                 step_cuda.fused_step_plain(net, inp, corr, flow, convs)),
         (motion_cuda, "motion_encoder"):
-            lambda flow, corr, convs, packed:
-            motion_cuda.motion_encoder_plain(flow, corr, convs),
+            lambda flow, corr, convs, packed: noisy(
+                motion_cuda.motion_encoder_plain(flow, corr, convs)),
         (gru_cuda, "sepconv_gru"):
-            lambda h, x, convs, packed: gru_cuda.sepconv_gru_plain(h, x,
-                                                                   convs)}
+            lambda h, x, convs, packed: noisy(
+                gru_cuda.sepconv_gru_plain(h, x, convs))}
     saved = {key: getattr(*key) for key in swaps}
     try:
         for (mod, attr), fn in swaps.items():
@@ -1024,12 +1039,14 @@ def sparse_train_against_plain(torch, pkg):
                               tcfg, batch, sparse_cancelled_by_norm)
 
 
-def train_full_size(torch, pkg, weights_path, mcfg=None, label="f32"):
+def train_full_size(torch, pkg, weights_path, mcfg=None, label="f32",
+                    update_impl="step"):
     """RAFT-large (``mcfg``, float32 by default) through
     ``raft_tpu_torch.train.train`` at the chairs defaults (B=8, 368x496,
     iters=12, lr 4e-4 one-cycle, AdamW, clip 1.0, gamma 0.8, batch norm
     training) from the fixture weights, on synthetic batches made on the
-    card (the same batches for every config), 2 warm-up and 5 timed steps,
+    card (the same batches for every config), on ``update_impl``, 2
+    warm-up and 5 timed steps,
     with every launch counter set to 0 just before. Returns (state, tcfg,
     ms per timed step, launches, peak MiB, every step's loss)."""
     mcfg = pkg.RAFTConfig() if mcfg is None else mcfg
@@ -1047,7 +1064,7 @@ def train_full_size(torch, pkg, weights_path, mcfg=None, label="f32"):
     reset_counts(pkg.counters)
     state = pkg.train(tcfg, mcfg, dataloader=loader,
                       restore_ckpt=weights_path, device=DEVICE,
-                      logger=Logger())
+                      logger=Logger(), update_impl=update_impl)
     torch.cuda.synchronize()
     end = time.perf_counter()
     launches = read_counts(pkg.counters)
@@ -2213,12 +2230,13 @@ def bf16_step_checks(torch, step_cuda, block, inputs, what, err):
 
 
 def mixed_goldens(torch, pkg, weights, counters):
-    """RAFT-large under the bf16 policy against the goldens through two
+    """RAFT-large under the bf16 policy against the goldens through three
     routes, the all-pairs pyramid stored in bfloat16 (corr_impl="fixed")
-    and the bf16 corr form (corr_impl="auto"), both with the bf16 step:
-    the GT EPE within MIXED_BAND of the CPU reference's, the parity EPE at
+    and the bf16 corr form (corr_impl="auto"), both with the bf16 step,
+    and the bf16 corr form with the bf16 chain (update_impl="chain"): the
+    GT EPE within MIXED_BAND of the CPU reference's, the parity EPE at
     most its own plus MIXED_BAND, and every refine iteration through the
-    bf16 forms. Returns {route: results}."""
+    bf16 forms (no float32 form launched). Returns {route: results}."""
     with open(os.path.join(REPO, "assets", "golden",
                            "cpu_reference.json")) as f:
         ref = json.load(f)
@@ -2227,13 +2245,16 @@ def mixed_goldens(torch, pkg, weights, counters):
     with open(os.path.join(REPO, "assets", "golden", "manifest.json")) as f:
         pairs = len(json.load(f)["pairs"])
     out = {}
-    for route, impl, per_pair in (
-            ("all-pairs bf16 storage + update_step_bf16", "fixed",
+    for route, impl, update_impl, per_pair in (
+            ("all-pairs bf16 storage + update_step_bf16", "fixed", "step",
              {"update_step_bf16": 12}),
-            ("corr_fwd_bf16 + update_step_bf16", "auto",
-             {"corr_fwd_bf16": 12, "update_step_bf16": 12})):
+            ("corr_fwd_bf16 + update_step_bf16", "auto", "step",
+             {"corr_fwd_bf16": 12, "update_step_bf16": 12}),
+            ("corr_fwd_bf16 + motion_fwd_bf16 + sepconv_gru_bf16", "auto",
+             "chain", {"corr_fwd_bf16": 12, "motion_fwd_bf16": 12,
+                       "sepconv_gru_bf16": 12})):
         pred = pkg.load_predictor(weights, iters=12, mixed_precision=True,
-                                  corr_impl=impl)
+                                  corr_impl=impl, update_impl=update_impl)
         reset_counts(counters)
         res = pkg.validate_golden(pred)
         launches = read_counts(counters)
@@ -2468,6 +2489,284 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
     rows[0]["ms_per_pair_mixed"] = ms
     rows[0]["ms_per_pair_f32"] = f32_ms
     return rows
+
+
+# -- the bf16 chain: motion_fwd and sepconv_gru in bfloat16 -------------------
+
+# The bf16 chain forms against their plain versions: max|kernel - plain|
+# within STEP_BF16_REL of max(1, max|plain|) (the motion encoder's 126
+# features; its flow channels bit for bit), and |kernel - plain| / |plain|
+# (2-norms) within CHAIN_BF16_NORM, which the control, the float32 form on
+# the same values, must exceed. The largest difference cannot tell a bf16
+# form from a float32 one (read on the CPU at the Sintel shape with the
+# golden weights and the plain versions: a float32 encoder lies 0.9 bf16
+# eps of max(1, max|bf16|) from the bf16 one, the GRU 1.1, against the
+# bar's 8); the 2-norm can: another summation order at the same rounding
+# points (float64 sums) reads 1.8e-4 (motion) and 5.8e-5 (GRU), the
+# float32 control 4.8e-3 and 4.7e-3. Set before the first card run.
+CHAIN_BF16_NORM = 1e-3
+# RAFT-small's golden aggregates under the bf16 policy from the JAX package
+# on the CPU (all-pairs engine, iters=12), which chip_smoke cannot import:
+#     JAX_PLATFORMS=cpu python scripts/golden_small_mixed_reference.py
+SMALL_MIXED_GT_CPU = 9.206369558970133
+SMALL_MIXED_PARITY_CPU = 0.11138821144898732
+
+
+def size_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bf16_motion_work(flow, corr, packed, convs):
+    """motion_work's operations with the bytes of the bf16 form: corr,
+    flow and the packed weights read once (bfloat16 matrices, float32
+    biases), the bfloat16 [motion | flow] written once."""
+    flops, _ = motion_work(flow, corr, packed, convs)
+    m = corr.shape[0] * corr.shape[1] * corr.shape[2]
+    return flops, size_bytes(corr, flow, *packed) + 2 * m * 128
+
+
+def bf16_gru_work(hid, parts, packed):
+    """gru_work's operations with the bytes of the bf16 form: h, the x
+    parts and the packed weights read once, h' written once."""
+    m = hid.shape[0] * hid.shape[1] * hid.shape[2]
+    c, cx = hid.shape[-1], sum(p.shape[-1] for p in parts)
+    flops = 2 * (2 * m * 5 * (c + cx) * 3 * c + 20 * m * c)
+    return flops, size_bytes(hid, *parts, *packed) + size_bytes(hid)
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b|, 2-norms, in float32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def bf16_chain_checks(torch, pkg, block, inputs, what, err):
+    """The bf16 forms of motion_fwd and sepconv_gru (x as the chain's parts
+    and whole) against their plain versions on bfloat16 ``inputs`` (net,
+    inp, corr, flow), beside the control, the float32 forms on the same
+    values: max|kernel - plain| within STEP_BF16_REL of max(1,
+    max|plain|), the 2-norm within CHAIN_BF16_NORM, the control's 2-norm
+    above it; the flow channels bit for bit. Updates ``err``; returns the
+    readings."""
+    motion_cuda, gru_cuda = pkg.motion_cuda, pkg.gru_cuda
+    net, inp, cor, flow = inputs
+    enc, gru = block.encoder, block.gru
+    with torch.inference_mode():
+        mot = motion_cuda.motion_encoder_cuda(flow, cor,
+                                              enc.packed_weights_bf16())
+        plain = motion_cuda.motion_encoder_plain(flow, cor, enc.convs())
+        ctrl = motion_cuda.motion_encoder_cuda(flow.float(), cor.float(),
+                                               enc.packed_weights())
+        cases = [("motion_fwd_bf16", "features", mot[..., :126],
+                  plain[..., :126], ctrl[..., :126])]
+        for label, x in (("x parts", (inp, plain)),
+                         ("x whole", torch.cat([inp, plain], -1))):
+            xf = (tuple(t.float() for t in x) if isinstance(x, tuple)
+                  else x.float())
+            cases.append((
+                "sepconv_gru_bf16", label,
+                gru_cuda.sepconv_gru_cuda(net, x, gru.packed_weights_bf16()),
+                gru_cuda.sepconv_gru_plain(net, x, gru.convs()),
+                gru_cuda.sepconv_gru_cuda(net.float(), xf,
+                                          gru.packed_weights())))
+    torch.cuda.synchronize()
+    if mot.dtype != torch.bfloat16 or not torch.equal(mot[..., 126:], flow):
+        fail(f"motion_fwd_bf16 did not pass the bfloat16 flow through bit "
+             f"for bit on {what}")
+    readings = {}
+    for name, label, got, want, control in cases:
+        top = float(want.float().abs().max())
+        bar = STEP_BF16_REL * max(1.0, top)
+        d = float((got.float() - want.float()).abs().max())
+        dc = float((control - want.float()).abs().max())
+        rel, rel_c = rel_norm(got, want), rel_norm(control, want)
+        err[name] = max(err[name], d)
+        b, h, w = net.shape[:3]
+        print(f"{name} {label} on {what} (B={b} {h}x{w}): max|kernel - "
+              f"plain| = {d:.3e} (bar {bar:.3g}; the float32 control "
+              f"{dc:.3e}), |kernel - plain| / |plain| = {rel:.3e} (bar "
+              f"{CHAIN_BF16_NORM:g}; the control {rel_c:.3e} must exceed "
+              f"it)")
+        if not (d <= bar and rel <= CHAIN_BF16_NORM < rel_c
+                and got.dtype == torch.bfloat16):
+            fail(f"{name} {label} disagrees with its plain version on "
+                 f"{what}, or the control does not exceed the bar")
+        readings[f"{name} {label} {what}"] = dict(
+            max_abs=d, bar=bar, rel_norm=rel, control_max_abs=dc,
+            control_rel_norm=rel_c)
+    return readings
+
+
+def chain_bf16_rows(torch, pkg, block, inputs, launches, pairs, err):
+    """The two bf16 chain forms timed at the Sintel shape on bfloat16
+    ``inputs`` (net, inp, corr, flow), each beside its plain version, its
+    bf16 bound and cuDNN's bf16 convolutions of the same work (the
+    yardstick), as the kernels line's rows."""
+    motion_cuda, gru_cuda = pkg.motion_cuda, pkg.gru_cuda
+    net, inp, cor, flow = inputs
+    bf = torch.bfloat16
+    enc, gru = block.encoder, block.gru
+    m_packed, g_packed = enc.packed_weights_bf16(), gru.packed_weights_bf16()
+    motion_lib = motion_library(torch, [(w.to(bf), b.to(bf))
+                                        for w, b in enc.convs()])
+    cell = gru_library(torch, [(w.to(bf), b.to(bf)) for w, b in gru.convs()])
+    rows = []
+    with torch.inference_mode():
+        parts = (inp, motion_cuda.motion_encoder_plain(flow, cor,
+                                                       enc.convs()))
+        flo_c, cor_c, net_c = nchw(flow), nchw(cor), nchw(net)
+        x_c = nchw(torch.cat(parts, -1))
+        h, w = net.shape[1:3]
+        for name, source, replaces, run, plain, lib, work in (
+                ("motion_fwd_bf16", "raft_tpu_torch/csrc/motion_fwd.cu",
+                 "raft_tpu/ops/motion_pallas.py:165",
+                 lambda: motion_cuda.motion_encoder_cuda(flow, cor, m_packed),
+                 lambda: motion_cuda.motion_encoder_plain(flow, cor,
+                                                          enc.convs()),
+                 lambda: motion_lib(flo_c, cor_c),
+                 bf16_motion_work(flow, cor, m_packed, enc.convs())),
+                ("sepconv_gru_bf16", "raft_tpu_torch/csrc/sepconv_gru.cu",
+                 "raft_tpu/ops/gru_pallas.py:245",
+                 lambda: gru_cuda.sepconv_gru_cuda(net, parts, g_packed),
+                 lambda: gru_cuda.sepconv_gru_plain(net, parts, gru.convs()),
+                 lambda: cell(net_c, x_c),
+                 bf16_gru_work(net, parts, g_packed))):
+            bound_ms, bound_by = bound(*work, peak=BF16_FLOPS)
+            ms, ms_q = time_ms(torch, run), queued_ms(torch, run)
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "path": "mixed chain",
+                "launches": launches[name],
+                "launches_per_pair": launches[name] / pairs,
+                "max_abs_err": err[name], "ms": ms, "ms_q": ms_q,
+                "plain_ms": time_ms(torch, plain, n=10),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": time_ms(torch, lib),
+                "bound_share_q": bound_ms / ms_q,
+                "tflops_q": work[0] / ms_q / 1e9, "flops": work[0],
+                "bytes": work[1],
+                "shape": f"B=1 {h}x{w}, C=128, Cc={cor.shape[-1]}, "
+                         f"bfloat16"})
+    for r in rows:
+        print(f"{r['name']}: {r['ms']:.4f} ms a launch, queued "
+              f"{r['ms_q']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP at 989 "
+              f"TFLOP/s, {r['bytes'] / 1e6:.2f} MB at 3.35 TB/s), "
+              f"{100 * r['bound_share_q']:.1f}% of the bound reached, "
+              f"{r['tflops_q']:.2f} TFLOP/s; plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms (cuDNN bf16)")
+    return rows
+
+
+def mixed_chain_phase(torch, pkg, weights, padder, frames, rng, feat,
+                      radius, counters, err, step_ms):
+    """RAFT-large inference under the bf16 policy on update_impl="chain":
+    the bf16 forms of motion_fwd and sepconv_gru (SASS for bf16
+    tensor-core MMAs) against their plain versions on Sintel inputs and on
+    the served model's own B=2 state (bf16_chain_checks), CHAIN_PAIRS
+    Sintel pairs served at iters=32 (corr_fwd_bf16 and both forms 32 a
+    pair, no float32 form), ms/pair beside the step route's median mixed
+    pair of this run (``step_ms``), one chain pair profiled, and both
+    forms timed. Returns their rows."""
+    t0 = time.perf_counter()
+    cuobjdump = os.path.join(os.path.dirname(pkg.build.nvcc()), "cuobjdump")
+    paths = pkg.build.build(("motion_fwd", "sepconv_gru"))
+    sass = {}
+    for name, lib in (("motion_fwd_bf16", "motion_fwd"),
+                      ("sepconv_gru_bf16", "sepconv_gru")):
+        ops = tensor_core_bf16_ops(cuobjdump, paths[lib])
+        sass[name] = sum(ops.values())
+        print(f"  {lib} SASS, tensor-core BF16 MMAs: {ops}")
+        if not ops:
+            fail(f"{lib} has no tensor-core BF16 MMA in its SASS")
+    chain = pkg.load_predictor(weights, iters=SINTEL_ITERS,
+                               mixed_precision=True, update_impl="chain")
+    block = chain.model.update_block
+    h, w = feat["sintel"]
+    bf = torch.bfloat16
+    sintel = tuple(t.to(bf) for t in update_inputs(torch, rng, h, w))
+    readings = bf16_chain_checks(torch, pkg, block, sintel, "Sintel inputs",
+                                 err)
+    carry = chain.step_carry_dispatch(np.stack([frames[1][0], frames[2][0]]),
+                                      np.stack([frames[1][1], frames[2][1]]))
+    with torch.inference_mode():
+        f1, pyr = carry["corr"]
+        cor = pkg.corr_cuda.windowed_correlation_bf16_cuda(
+            f1, pyr, carry["coords1"].contiguous(), radius, out_dtype=bf)
+    flow = (carry["coords1"] - carry["coords0"]).to(bf).contiguous()
+    readings.update(bf16_chain_checks(
+        torch, pkg, block, (carry["net"], carry["inp"], cor, flow),
+        "the served state", err))
+    phase_seconds("mixed chain: kernels against plain", t0)
+    t0 = time.perf_counter()
+    times, launches = serve_pairs(torch, chain, padder,
+                                  frames[:CHAIN_PAIRS + 1], counters)
+    ms, step = statistics.median(times), step_ms
+    print(f"serve mixed chain: RAFT-large bf16 policy on "
+          f"update_impl='chain', {CHAIN_PAIRS} Sintel pairs "
+          f"{SINTEL_HW[0]}x{SINTEL_HW[1]}, iters={SINTEL_ITERS}, B=1: median "
+          f"{ms:.2f} ms/pair (all {', '.join(f'{t:.2f}' for t in times)}); "
+          f"the step route under the policy {step:.2f} ms/pair in this run")
+    check_launches(launches, CHAIN_PAIRS, {"corr_fwd_bf16": SINTEL_ITERS,
+                                           "motion_fwd_bf16": SINTEL_ITERS,
+                                           "sepconv_gru_bf16": SINTEL_ITERS})
+    profile_pair(torch, chain, *frames[1], label="profile mixed chain",
+                 per_iteration="sepconv_gru_bf16_kernel")
+    rows = chain_bf16_rows(torch, pkg, block, sintel, launches, CHAIN_PAIRS,
+                           err)
+    for r in rows:
+        r["sass_bf16_mma"] = sass[r["name"]]
+        r["readings"] = {k: v for k, v in readings.items()
+                         if k.startswith(r["name"])}
+    rows[0].update(ms_per_pair_mixed_chain=ms, ms_per_pair_mixed_step=step)
+    phase_seconds("mixed chain: serve and timings", t0)
+    return rows
+
+
+def mixed_small_phase(torch, pkg, padder, frames, counters, f32_times):
+    """RAFT-small under the bf16 policy: the small goldens on both engines,
+    the bf16 corr form at r=3, C=128 (corr_impl auto; 12 a pair) and the
+    all-pairs pyramid stored in bfloat16 (corr_impl fixed), each with the
+    GT EPE within MIXED_BAND of the JAX package's own aggregate under the
+    policy (SMALL_MIXED_GT_CPU) and the parity EPE at most its own plus
+    MIXED_BAND; then SERVE_PAIRS Sintel pairs (corr_fwd_bf16 32 a pair),
+    ms/pair beside the float32 RAFT-small pairs of this run
+    (``f32_times``), one of them profiled. Returns the readings."""
+    with open(os.path.join(REPO, "assets", "golden", "manifest.json")) as f:
+        npairs = len(json.load(f)["small"]["pairs"])
+    parity_bar = SMALL_MIXED_PARITY_CPU + MIXED_BAND
+    out = {}
+    for route, impl, per_pair in (
+            ("corr_fwd_bf16 r=3", "auto", {"corr_fwd_bf16": 12}),
+            ("all-pairs bf16 storage", "fixed", {})):
+        pred = pkg.load_predictor(SMALL_WEIGHTS, small=True, iters=12,
+                                  mixed_precision=True, corr_impl=impl)
+        reset_counts(counters)
+        res = pkg.validate_golden_small(pred)
+        launches = read_counts(counters)
+        out[route] = res
+        print(f"golden small mixed [{route}, cuDNN bf16 update block]: "
+              f"parity EPE {res['golden_small_parity_epe']:.4f} (bar "
+              f"{parity_bar:.4f}), GT EPE {res['golden_small_gt_epe']:.4f} "
+              f"(JAX on the CPU {SMALL_MIXED_GT_CPU:.4f}, band {MIXED_BAND})")
+        if not res["golden_small_parity_epe"] <= parity_bar:
+            fail(f"RAFT-small mixed golden parity through {route}")
+        if not abs(res["golden_small_gt_epe"]
+                   - SMALL_MIXED_GT_CPU) < MIXED_BAND:
+            fail(f"RAFT-small mixed golden GT EPE through {route}")
+        check_launches(launches, npairs, per_pair)
+    small = pkg.load_predictor(SMALL_WEIGHTS, small=True, iters=SINTEL_ITERS,
+                               mixed_precision=True)
+    times, launches = serve_pairs(torch, small, padder, frames, counters)
+    ms, f32 = statistics.median(times), statistics.median(f32_times)
+    print(f"serve small mixed: RAFT-small bf16 policy, {SERVE_PAIRS} Sintel "
+          f"pairs, iters={SINTEL_ITERS}, B=1: median {ms:.2f} ms/pair (all "
+          f"{', '.join(f'{t:.2f}' for t in times)}); float32 RAFT-small "
+          f"{f32:.2f} ms/pair in this run")
+    check_launches(launches, SERVE_PAIRS, {"corr_fwd_bf16": SINTEL_ITERS})
+    profile_pair(torch, small, *frames[1], label="profile small mixed",
+                 per_iteration="corr_fwd_kernel")
+    return {"goldens": out, "ms_per_pair": ms, "ms_per_pair_f32": f32,
+            "launches_per_pair": launches["corr_fwd_bf16"] / SERVE_PAIRS}
 
 
 # -- bf16 mixed-precision training ------------------------------------------
@@ -2787,8 +3086,68 @@ def mixed_train_phase(torch, pkg, weights, f32_run, err):
     phase_seconds("mixed train: chairs", t0)
     timings.update(ms_per_step_mixed=ms, ms_per_step_f32=f32,
                    loss_gap_max=max(gaps), peak_mib_mixed=peak,
-                   shared_share_train=shares["bwd"], profile_mixed=profile)
+                   shared_share_train=shares["bwd"], profile_mixed=profile,
+                   losses_mixed=losses)
     return timings, launches, steps, problems
+
+
+def mixed_chain_train_phase(torch, pkg, weights, mixed_train):
+    """RAFT-large training under the bf16 policy on update_impl="chain":
+    one train step through the kernels against the plain route (B=2,
+    184x248, iters=4; STEP_BARS_BF16, the float32 model's plain route the
+    control that must exceed the gradient bar), then ``train()`` at the
+    chairs defaults on the same weights and batches as the step route's
+    mixed run (``mixed_train``, mixed_train_phase's timings), each step's
+    loss beside that run's, ms/step beside its. corr_fwd_bf16,
+    corr_bwd_bf16, motion_fwd_bf16 and sepconv_gru_bf16 12 a step. Returns
+    (timings, launches, steps, problems)."""
+    t0 = time.perf_counter()
+    tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
+                           iters=CMP_ITERS, num_steps=100)
+    batch = synthetic_batch(torch, CMP_B, CMP_HW,
+                            torch.Generator(device=DEVICE).manual_seed(1))
+    state_dict = pkg.load_npz(weights)
+
+    def make_model(mixed=True):
+        model = pkg.RAFT(pkg.RAFTConfig(alternate_corr=True,
+                                        mixed_precision=mixed))
+        model.load_state_dict(state_dict)
+        return model
+
+    launches, problems = step_against_plain(
+        torch, pkg, "mixed chain train step", make_model, tcfg, batch,
+        cancelled_by_norm, bars=STEP_BARS_BF16,
+        control=lambda: make_model(False), alternate_corr=True,
+        update_impl="chain")
+    check_launches(launches, 1, {"corr_fwd_bf16": CMP_ITERS,
+                                 "corr_bwd_bf16": CMP_ITERS,
+                                 "motion_fwd_bf16": CMP_ITERS,
+                                 "sepconv_gru_bf16": CMP_ITERS}, unit="step")
+    phase_seconds("mixed chain train: step against plain", t0)
+    t0 = time.perf_counter()
+    _, _, step_ms, launches, peak, losses = train_full_size(
+        torch, pkg, weights, pkg.RAFTConfig(mixed_precision=True),
+        "mixed chain", update_impl="chain")
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    check_launches(launches, steps, {"corr_fwd_bf16": TRAIN_ITERS,
+                                     "corr_bwd_bf16": TRAIN_ITERS,
+                                     "motion_fwd_bf16": TRAIN_ITERS,
+                                     "sepconv_gru_bf16": TRAIN_ITERS},
+                   unit="step")
+    for n, (a, b) in enumerate(zip(losses, mixed_train["losses_mixed"])):
+        print(f"  step {n}: loss mixed chain {a:.6f}, mixed step route "
+              f"{b:.6f}, relative gap {abs(a - b) / abs(b):.3e}")
+    ms, step = statistics.median(step_ms), mixed_train["ms_per_step_mixed"]
+    print(f"train mixed chain: RAFT-large bf16 policy on update_impl="
+          f"'chain', B={TRAIN_B} {TRAIN_HW[0]}x{TRAIN_HW[1]}, iters="
+          f"{TRAIN_ITERS}, {TRAIN_TIMED} timed steps after {TRAIN_WARMUP}: "
+          f"median {ms:.2f} ms/step (all "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)}); the step route under "
+          f"the policy {step:.2f} ms/step in this run; peak memory "
+          f"{peak:.1f} MiB")
+    phase_seconds("mixed chain train: chairs", t0)
+    return ({"ms_per_step_mixed_chain": ms, "ms_per_step_mixed_step": step,
+             "peak_mib_mixed_chain": peak}, launches, steps, problems)
 
 
 def main():
@@ -2865,7 +3224,8 @@ def main():
     err = {"corr_fwd": 0.0, "corr_bwd": 0.0, "sepconv_gru": 0.0,
            "motion_fwd": 0.0, "update_step": 0.0, "msda_fwd": 0.0,
            "msda_bwd": 0.0, "corr_fwd_bf16": 0.0, "update_step_bf16": 0.0,
-           "corr_bwd_bf16": 0.0}
+           "corr_bwd_bf16": 0.0, "motion_fwd_bf16": 0.0,
+           "sepconv_gru_bf16": 0.0}
     corr_bwd_rel = msda_bwd_rel = 0.0
     feat = {"golden": (24, 32), "sintel": (55, 128)}
     with torch.inference_mode():
@@ -3061,6 +3421,8 @@ def main():
                 "corr_bwd_bf16": (corr_cuda, "bwd_bf16_launches"),
                 "motion_fwd": (motion_cuda, "launches"),
                 "sepconv_gru": (gru_cuda, "launches"),
+                "motion_fwd_bf16": (motion_cuda, "bf16_launches"),
+                "sepconv_gru_bf16": (gru_cuda, "bf16_launches"),
                 "msda_fwd": (msda_cuda, "launches"),
                 "msda_bwd": (msda_cuda, "bwd_launches")}
     serve = load_predictor(weights, iters=SINTEL_ITERS)
@@ -3149,6 +3511,16 @@ def main():
     mixed_rows = mixed_phase(torch, pkg, weights, padder, frames, rng, feat,
                              radius, counters, err, times)
     phase_seconds("mixed", t0)
+    # -- ... on update_impl="chain", and RAFT-small under the policy --------
+    t0 = time.perf_counter()
+    chain_rows = mixed_chain_phase(torch, pkg, weights, padder, frames, rng,
+                                   feat, radius, counters, err,
+                                   mixed_rows[0]["ms_per_pair_mixed"])
+    phase_seconds("mixed chain", t0)
+    t0 = time.perf_counter()
+    mixed_rows[0]["small_mixed"] = mixed_small_phase(
+        torch, pkg, padder, frames, counters, small_times)
+    phase_seconds("mixed small", t0)
 
     # -- serve SparseRAFT at full OursConfig widths ------------------------
     sparse_problems = []
@@ -3216,6 +3588,11 @@ def main():
             err)
     problems += mixed_problems
     phase_seconds("mixed train", t0)
+    t0 = time.perf_counter()
+    chain_train, chain_train_launches, chain_steps, chain_problems = \
+        mixed_chain_train_phase(torch, pkg, weights, mixed_train)
+    problems += chain_problems
+    phase_seconds("mixed chain train", t0)
 
     # -- train SparseRAFT: one step against the plain versions, then at
     #    the fork's training resolution ---------------------------------
@@ -3512,6 +3889,10 @@ def main():
     for row in mixed_rows:
         row["train_launches_per_step"] = (
             mixed_train_launches[row["name"]] / mixed_steps)
+    for row in chain_rows:
+        row["train_launches_per_step"] = (
+            chain_train_launches[row["name"]] / chain_steps)
+    chain_rows[0].update(chain_train)
     main_bwd = mixed_train["chairs coherent bfloat16/float32"]
     mixed_rows.append({
         "name": "corr_bwd_bf16", "route": "cuda",
@@ -3539,7 +3920,7 @@ def main():
           f"HBM), "
           f"plain {main_bwd['plain_ms']:.4f} ms, library none "
           f"({main_bwd['shape']})")
-    kernels.extend(mixed_rows)
+    kernels.extend(mixed_rows + chain_rows)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

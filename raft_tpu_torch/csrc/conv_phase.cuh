@@ -1,7 +1,7 @@
 // The shared convolution tile and phase runner of the port's update-block
 // kernels (sepconv_gru.cu, motion_fwd.cu, update_step.cu), NVIDIA Hopper
 // (sm_90a): an implicit GEMM on the tensor cores in 3xTF32, which gives
-// float32-grade products, with float32 accumulation. update_step.cu also
+// float32-grade products, with float32 accumulation. Each of the three also
 // runs a bf16 form of the tile (bfloat16 activations and weights, one bf16
 // product pass; "the bf16 form" below), for the mixed-precision policy.
 //

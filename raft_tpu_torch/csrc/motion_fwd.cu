@@ -37,6 +37,36 @@ __global__ void __launch_bounds__(kThreads, 2) motion_fwd_kernel(const __grid_co
   run_program(p);
 }
 
+__global__ void __launch_bounds__(kThreads, 2)
+    motion_fwd_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
+  run_program(p);
+}
+
+// The encoder's program in T (float or bf16), launched on `kernel`.
+template <typename T, typename Kernel>
+int motion_fwd(Kernel kernel, const void* corr, const void* flow, const void* wc1,
+               const void* bc1, const void* wc2, const void* bc2, const void* wf1,
+               const void* bf1, const void* wf2, const void* bf2, const void* wo, const void* bo,
+               void* scratch, void* out, int batch, int height, int width, int corr_channels,
+               void* stream) {
+  if (corr_channels <= 0 || corr_channels % 4 != 0 || !valid_geometry(batch, height, width)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ProgramT<T> p{};
+  p.M = batch * height * width;
+  p.H = height;
+  p.W = width;
+  if (p.M == 0) return 0;
+  const MotionWeightsT<T> mw{static_cast<const T*>(wc1), static_cast<const float*>(bc1),
+                             static_cast<const T*>(wc2), static_cast<const float*>(bc2),
+                             static_cast<const T*>(wf1), static_cast<const float*>(bf1),
+                             static_cast<const T*>(wf2), static_cast<const float*>(bf2),
+                             static_cast<const T*>(wo),  static_cast<const float*>(bo)};
+  add_motion_phases(p, static_cast<const T*>(corr), corr_channels, static_cast<const T*>(flow),
+                    mw, static_cast<T*>(scratch), static_cast<T*>(out));
+  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // corr (B, H, W, Cc) and flow (B, H, W, 2), NHWC float32, contiguous and
@@ -50,21 +80,22 @@ extern "C" int raft_motion_fwd(const void* corr, const void* flow, const void* w
                                const void* bf2, const void* wo, const void* bo, void* scratch,
                                void* out, int batch, int height, int width, int corr_channels,
                                void* stream) {
-  if (corr_channels <= 0 || corr_channels % 4 != 0 || !valid_geometry(batch, height, width)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Program p{};
-  p.M = batch * height * width;
-  p.H = height;
-  p.W = width;
-  if (p.M == 0) return 0;
-  const MotionWeights mw{static_cast<const float*>(wc1), static_cast<const float*>(bc1),
-                         static_cast<const float*>(wc2), static_cast<const float*>(bc2),
-                         static_cast<const float*>(wf1), static_cast<const float*>(bf1),
-                         static_cast<const float*>(wf2), static_cast<const float*>(bf2),
-                         static_cast<const float*>(wo),  static_cast<const float*>(bo)};
-  add_motion_phases(p, static_cast<const float*>(corr), corr_channels,
-                    static_cast<const float*>(flow), mw, static_cast<float*>(scratch),
-                    static_cast<float*>(out));
-  return (int)launch_program(motion_fwd_kernel, p, static_cast<cudaStream_t>(stream));
+  return motion_fwd<float>(motion_fwd_kernel, corr, flow, wc1, bc1, wc2, bc2, wf1, bf1, wf2,
+                           bf2, wo, bo, scratch, out, batch, height, width, corr_channels,
+                           stream);
+}
+
+// The bf16 form: the arguments of raft_motion_fwd with corr, flow, the
+// weight matrices, the scratch (B*H*W*640 bfloat16s) and out in bfloat16,
+// packed by motion_cuda.pack_weights_bf16 (one matrix each, no lo part) and
+// the biases float32 holding bfloat16 values.
+extern "C" int raft_motion_fwd_bf16(const void* corr, const void* flow, const void* wc1,
+                                    const void* bc1, const void* wc2, const void* bc2,
+                                    const void* wf1, const void* bf1, const void* wf2,
+                                    const void* bf2, const void* wo, const void* bo,
+                                    void* scratch, void* out, int batch, int height, int width,
+                                    int corr_channels, void* stream) {
+  return motion_fwd<bf16>(motion_fwd_bf16_kernel, corr, flow, wc1, bc1, wc2, bc2, wf1, bf1,
+                          wf2, bf2, wo, bo, scratch, out, batch, height, width, corr_channels,
+                          stream);
 }

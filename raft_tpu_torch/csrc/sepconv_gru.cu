@@ -30,6 +30,16 @@
 // tile. The N = 256 gate phases have 440 tiles and the N = 128 candidate
 // phases 220 at Sintel size, on 264 co-resident blocks (two a SM): in
 // either, a sixth of the SMs run one tile fewer than the rest.
+//
+// The bf16 form (raft_sepconv_gru_bf16) replaces the same TPU kernel at the
+// compute dtype bfloat16 (sepconv_gru(dtype=bfloat16), :602): the same four
+// phases (add_gru_phases<bf16>) on the bf16 conv tile (conv_phase.cuh),
+// bfloat16 h, x parts, weights, scratch (z, r*h, the half-way state) and
+// h', each conv's f32 sum rounded to bfloat16 before its bfloat16 bias and
+// the gates, the candidate and the blend rounded where the TPU kernel
+// rounds (gru_pallas.py:300-305). Bound on an H100 SXM at the Sintel shape:
+// 20.8 GFLOP at 989 TFLOP/s is 0.0210 ms, against about 10 MB of
+// compulsory bfloat16 traffic (3 us): bound by tensor-core operations.
 
 #include "conv_phase.cuh"
 
@@ -39,6 +49,41 @@ namespace {
 
 __global__ void __launch_bounds__(kThreads, 2) sepconv_gru_kernel(const __grid_constant__ Program p) {
   run_program(p);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    sepconv_gru_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
+  run_program(p);
+}
+
+// The cell's program in T (float or bf16), launched on `kernel`.
+template <typename T, typename Kernel>
+int sepconv_gru(Kernel kernel, const void* h, const void* x0, const void* x1, const void* w_zr1,
+                const void* b_zr1, const void* w_q1, const void* b_q1, const void* w_zr2,
+                const void* b_zr2, const void* w_q2, const void* b_q2, void* h1, void* z,
+                void* rh, void* out, int batch, int height, int width, int channels,
+                int x0_channels, int x1_channels, void* stream) {
+  const bool x1_ok = x1_channels == 0 ? x1 == nullptr
+                                      : x1 != nullptr && x1_channels > 0 && x1_channels % KC == 0;
+  if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % KC != 0 ||
+      !x1_ok || !valid_geometry(batch, height, width)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ProgramT<T> p{};
+  p.M = batch * height * width;
+  p.H = height;
+  p.W = width;
+  if (p.M == 0) return 0;
+  const T* xs[2] = {static_cast<const T*>(x0), static_cast<const T*>(x1)};
+  const int cxs[2] = {x0_channels, x1_channels};
+  const GruWeightsT<T> gw{static_cast<const T*>(w_zr1), static_cast<const float*>(b_zr1),
+                          static_cast<const T*>(w_q1),  static_cast<const float*>(b_q1),
+                          static_cast<const T*>(w_zr2), static_cast<const float*>(b_zr2),
+                          static_cast<const T*>(w_q2),  static_cast<const float*>(b_q2)};
+  add_gru_phases(p, static_cast<const T*>(h), channels, xs, cxs, x1 ? 2 : 1, gw,
+                 static_cast<T*>(z), static_cast<T*>(rh), static_cast<T*>(h1),
+                 static_cast<T*>(out));
+  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -56,25 +101,23 @@ extern "C" int raft_sepconv_gru(const void* h, const void* x0, const void* x1,
                                 const void* w_q2, const void* b_q2, void* h1, void* z, void* rh,
                                 void* out, int batch, int height, int width, int channels,
                                 int x0_channels, int x1_channels, void* stream) {
-  const bool x1_ok = x1_channels == 0 ? x1 == nullptr
-                                      : x1 != nullptr && x1_channels > 0 && x1_channels % KC == 0;
-  if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % KC != 0 ||
-      !x1_ok || !valid_geometry(batch, height, width)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Program p{};
-  p.M = batch * height * width;
-  p.H = height;
-  p.W = width;
-  if (p.M == 0) return 0;
-  const float* xs[2] = {static_cast<const float*>(x0), static_cast<const float*>(x1)};
-  const int cxs[2] = {x0_channels, x1_channels};
-  const GruWeights gw{static_cast<const float*>(w_zr1), static_cast<const float*>(b_zr1),
-                      static_cast<const float*>(w_q1),  static_cast<const float*>(b_q1),
-                      static_cast<const float*>(w_zr2), static_cast<const float*>(b_zr2),
-                      static_cast<const float*>(w_q2),  static_cast<const float*>(b_q2)};
-  add_gru_phases(p, static_cast<const float*>(h), channels, xs, cxs, x1 ? 2 : 1, gw,
-                 static_cast<float*>(z), static_cast<float*>(rh), static_cast<float*>(h1),
-                 static_cast<float*>(out));
-  return (int)launch_program(sepconv_gru_kernel, p, static_cast<cudaStream_t>(stream));
+  return sepconv_gru<float>(sepconv_gru_kernel, h, x0, x1, w_zr1, b_zr1, w_q1, b_q1, w_zr2,
+                            b_zr2, w_q2, b_q2, h1, z, rh, out, batch, height, width, channels,
+                            x0_channels, x1_channels, stream);
+}
+
+// The bf16 form: the arguments of raft_sepconv_gru with h, the x parts, the
+// weight matrices, the scratch h1, z, rh and out in bfloat16, packed by
+// gru_cuda.pack_weights_bf16 (one matrix each, no lo part) and the biases
+// float32 holding bfloat16 values.
+extern "C" int raft_sepconv_gru_bf16(const void* h, const void* x0, const void* x1,
+                                     const void* w_zr1, const void* b_zr1, const void* w_q1,
+                                     const void* b_q1, const void* w_zr2, const void* b_zr2,
+                                     const void* w_q2, const void* b_q2, void* h1, void* z,
+                                     void* rh, void* out, int batch, int height, int width,
+                                     int channels, int x0_channels, int x1_channels,
+                                     void* stream) {
+  return sepconv_gru<bf16>(sepconv_gru_bf16_kernel, h, x0, x1, w_zr1, b_zr1, w_q1, b_q1, w_zr2,
+                           b_zr2, w_q2, b_q2, h1, z, rh, out, batch, height, width, channels,
+                           x0_channels, x1_channels, stream);
 }

@@ -12,8 +12,9 @@ turned off for convolutions and matmuls so the port computes in float32
 like the reference.
 
 Run the golden checks on the card (add ``--device cpu`` for the CPU;
-``--mixed_precision`` runs RAFT-large under the bf16 policy, whose goldens
-sit in the band of ``assets/golden/cpu_reference.json``):
+``--mixed_precision`` runs RAFT-large or, with ``--small``, RAFT-small
+under the bf16 policy; RAFT-large's mixed goldens sit in the band of
+``assets/golden/cpu_reference.json``):
     python -m raft_tpu_torch.evaluate --model assets/golden/weights.npz \
         --dataset golden
     python -m raft_tpu_torch.evaluate --small \
@@ -474,10 +475,10 @@ def load_predictor(model_path: str, iters: int = 32,
     run directory of the JAX package is refused: reading it needs JAX.
     ``corr_impl=None`` means ``"auto"``, or ``"fixed"`` when
     ``alternate_corr`` or ``corr_dtype`` asks for an engine or a storage
-    explicitly. ``mixed_precision`` builds RAFT-large under the bf16 policy
-    and ``corr_dtype`` ("float32", "bfloat16" or "auto") sets the all-pairs
-    pyramid's storage (``RAFTConfig``); both take the same float32
-    weights.
+    explicitly. ``mixed_precision`` builds the model (large or small) under
+    the bf16 policy and ``corr_dtype`` ("float32", "bfloat16" or "auto")
+    sets the all-pairs pyramid's storage (``RAFTConfig``); both take the
+    same float32 weights.
 
     ``model_family="sparse"`` builds ``SparseRAFT(config)`` (default
     ``OursConfig()``) with random weights from ``seed`` for
@@ -556,8 +557,8 @@ def main(argv=None) -> Dict[str, float]:
                         help="refine iteration: one step-kernel launch "
                              "(default) or the motion then GRU kernels")
     parser.add_argument("--mixed_precision", action="store_true",
-                        help="RAFT-large under the bf16 policy (bfloat16 "
-                             "encoders, lookup and update block)")
+                        help="the bf16 policy, RAFT-large or small "
+                             "(bfloat16 encoders, lookup and update block)")
     parser.add_argument("--corr_dtype", default=None,
                         choices=["float32", "bfloat16", "auto"],
                         help="storage dtype of the all-pairs pyramid "

@@ -193,11 +193,11 @@ class BottleneckBlock(nn.Module):
                 nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.relu(self.norm1(self.conv1(x), train))
-        y = self.relu(self.norm2(self.conv2(y), train))
-        y = self.relu(self.norm3(self.conv3(y), train))
+        y = self.relu(self.norm1(conv(self.conv1, x), train))
+        y = self.relu(self.norm2(conv(self.conv2, y), train))
+        y = self.relu(self.norm3(conv(self.conv3, y), train))
         if self.downsample is not None:
-            x = self.norm4(self.downsample[0](x), train)
+            x = self.norm4(conv(self.downsample[0], x), train)
         return self.relu(x + y)
 
 

@@ -21,16 +21,18 @@ radius 3, is the corr kernel. The correlation engine is the materialised
 all-pairs pyramid or the on-demand lookup (``alternate_corr``), whose CUDA
 path is the kernels of ``ops/corr_cuda.py``.
 
-Mixed precision (``RAFTConfig.mixed_precision``, RAFT-large): the
-encoders and the update block compute in bfloat16 with float32 parameters,
-in inference and in training; the correlation payload follows
+Mixed precision (``RAFTConfig.mixed_precision``, RAFT-large and
+RAFT-small): the encoders and the update block compute in bfloat16 with
+float32 parameters, in inference and (RAFT-large) in training, on either
+``update_impl``; the correlation payload follows
 ``RAFTConfig.corr_storage`` (the all-pairs pyramid's storage) and
 ``corr_mxu`` (the on-demand lookup's products, which emits bfloat16
 windows), each resolved for inference or training as in the JAX package;
 coordinates, flow, the upsampled predictions and the early exit's norms
 stay float32, and every output comes back float32. On the card a training
-forward runs the bf16 corr and step kernels, and their backwards (the bf16
-corr backward kernel, the step's bfloat16 recompute) give the float32
+forward runs the bf16 corr kernel and the bf16 step kernel (or the bf16
+motion and GRU kernels), and their backwards (the bf16 corr backward
+kernel, the bfloat16 recompute of the update kernels) give the float32
 parameters their gradients.
 
 Serving: ``early_exit=(tol, patience)`` freezes each sample once its
@@ -81,15 +83,11 @@ def _freeze(keep: torch.Tensor, old: torch.Tensor,
 
 
 class RAFT(nn.Module):
-    """RAFT-large or RAFT-small (``config.small``); float32, or RAFT-large
-    under the bf16 mixed-precision policy (``config.mixed_precision``)."""
+    """RAFT-large or RAFT-small (``config.small``); float32, or under the
+    bf16 mixed-precision policy (``config.mixed_precision``)."""
 
     def __init__(self, config: RAFTConfig = RAFTConfig()):
         super().__init__()
-        if config.mixed_precision and config.small:
-            raise NotImplementedError(
-                "the bf16 mixed-precision policy for RAFT-small is not "
-                "ported yet")
         if config.normalized_coords:
             raise ValueError("normalized_coords is not supported by the "
                              "canonical RAFT path")

@@ -11,18 +11,22 @@ on a CUDA tensor (differentiable: its backward recomputes through the plain
 version, ``ops/recompute.py``), its plain version on the CPU. After an
 optimizer updates the weights in place, the packed copies the kernels read
 are rebuilt on the next call (``packed_weights``). The remaining convolutions
-(the flow head outside the step kernel, the mask head) run as
-``nn.Conv2d`` on an NCHW view of the NHWC memory. Attribute names follow
+(the flow head outside the step kernel, the mask head) run through
+``extractor.conv`` on an NCHW view of the NHWC memory. Attribute names follow
 the torch state-dict keys (``update_block.gru.convz1``,
 ``update_block.mask.0`` ...). RAFT-small's block has no TPU kernel in the
-reference either: its convolutions are ``nn.Conv2d`` (cuDNN on the card).
+reference either: its convolutions run on cuDNN (``extractor.conv``).
 
-``BasicUpdateBlock`` computes in the dtype of ``net``: bfloat16 under the
-mixed-precision policy, through the step kernel's bf16 form and bfloat16
-heads on cuDNN (``extractor.conv``), with float32 parameters, which
-receive their gradients in training (the step's recompute and the heads
-cast them in the graph). The chain's kernels have no bf16 form yet, so
-``update_impl="chain"`` refuses it, in inference and in training.
+Both blocks compute in the dtype of ``net``: bfloat16 under the
+mixed-precision policy, with float32 parameters, which receive their
+gradients in training. ``BasicUpdateBlock`` then runs the bf16 forms of
+the step kernel, or on ``update_impl="chain"`` of the motion and GRU
+kernels (each module packs its weights once per layout:
+``packed_weights_bf16``), and bfloat16 heads on cuDNN; the kernels'
+recompute and the heads cast the float32 weights in the graph.
+``SmallUpdateBlock``'s convolutions run as flax's ``Conv`` at
+``dtype=bfloat16`` (``extractor.conv``) and its gates and blend round in
+bfloat16, as JAX's ``ConvGRU`` does.
 """
 
 from __future__ import annotations
@@ -121,13 +125,18 @@ class SepConvGRU(nn.Module):
 
     def forward(self, h: torch.Tensor, x) -> torch.Tensor:
         """``h`` (B, H, W, C) and ``x`` (B, H, W, Cx) or a tuple of parts,
-        contiguous NHWC."""
-        return gru_cuda.sepconv_gru(h, x, self.convs(), self.packed_weights())
+        contiguous NHWC, all float32 or all bfloat16 (the kernel's bf16
+        form)."""
+        packed = (self.packed_weights_bf16() if h.dtype == torch.bfloat16
+                  else self.packed_weights())
+        return gru_cuda.sepconv_gru(h, x, self.convs(), packed)
 
 
 class ConvGRU(nn.Module):
     """3x3 convolutional GRU (RAFT-small). Takes and returns NCHW tensors:
-    ``SmallUpdateBlock`` runs the whole small block in NCHW."""
+    ``SmallUpdateBlock`` runs the whole small block in NCHW. In bfloat16
+    each convolution rounds as flax's ``Conv`` (``extractor.conv``) and
+    every gate, product and sum rounds to bfloat16, as in JAX."""
 
     def __init__(self, hidden_dim: int = 96, input_dim: int = 146):
         super().__init__()
@@ -138,9 +147,9 @@ class ConvGRU(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(self.convz(hx))
-        r = torch.sigmoid(self.convr(hx))
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        z = torch.sigmoid(conv(self.convz, hx))
+        r = torch.sigmoid(conv(self.convr, hx))
+        q = torch.tanh(conv(self.convq, torch.cat([r * h, x], dim=1)))
         return (1 - z) * h + z * q
 
 
@@ -156,9 +165,10 @@ class SmallMotionEncoder(nn.Module):
         self.conv = nn.Conv2d(128, 80, 3, padding=1)
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        cor = torch.relu(self.convc1(corr))
-        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
-        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        cor = torch.relu(conv(self.convc1, corr))
+        flo = torch.relu(conv(self.convf2, torch.relu(conv(self.convf1,
+                                                           flow))))
+        out = torch.relu(conv(self.conv, torch.cat([cor, flo], dim=1)))
         return torch.cat([out, flow], dim=1)
 
 
@@ -175,14 +185,16 @@ class SmallUpdateBlock(nn.Module):
 
     def forward(self, net, inp, corr, flow, compute_mask=True,
                 update_impl: str = "step"):
-        """NHWC in and out, as ``BasicUpdateBlock.forward``;
-        ``compute_mask`` and ``update_impl`` are taken and ignored (no mask
-        head, no kernel). Returns ``(net, None, delta_flow)``."""
+        """NHWC in and out, as ``BasicUpdateBlock.forward``, in ``net``'s
+        dtype (the other inputs in it too); ``compute_mask`` and
+        ``update_impl`` are taken and ignored (no mask head, no kernel).
+        Returns ``(net, None, delta_flow)``."""
         del compute_mask, update_impl
         flow = nchw(flow)
         motion = self.encoder(flow, nchw(corr))
         net = self.gru(nchw(net), torch.cat([nchw(inp), motion], dim=1))
-        delta = self.flow_head.conv2(torch.relu(self.flow_head.conv1(net)))
+        delta = conv(self.flow_head.conv2,
+                     torch.relu(conv(self.flow_head.conv1, net)))
         return nhwc(net), None, nhwc(delta)
 
 
@@ -209,8 +221,12 @@ class BasicMotionEncoder(nn.Module):
                               "_packed_bf16")
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        """NHWC ``flow`` and ``corr``, both float32 or both bfloat16 (the
+        kernel's bf16 form); returns ``[out | flow]`` in their dtype."""
+        packed = (self.packed_weights_bf16() if corr.dtype == torch.bfloat16
+                  else self.packed_weights())
         return motion_cuda.motion_encoder(flow.contiguous(), corr.contiguous(),
-                                          self.convs(), self.packed_weights())
+                                          self.convs(), packed)
 
 
 class BasicUpdateBlock(nn.Module):
@@ -238,14 +254,9 @@ class BasicUpdateBlock(nn.Module):
         runs the motion kernel, then the GRU kernel with x = (inp,
         motion). Returns ``(net, mask or None, delta_flow)``, in ``net``'s
         dtype (float32, or bfloat16 under mixed precision: the other
-        inputs then in bfloat16 too)."""
+        inputs then in bfloat16 too, and the kernels' bf16 forms run)."""
         net, inp = net.contiguous(), inp.contiguous()
         bf16 = net.dtype == torch.bfloat16
-        if update_impl == "chain" and bf16:
-            raise NotImplementedError(
-                "update_impl='chain' has no bf16 form: the bf16 chain kernels "
-                "(motion_fwd and sepconv_gru in bfloat16) are not ported yet; "
-                "use update_impl='step'")
         if update_impl == "step":
             with_head = step_cuda.plan_fusion(compute_mask is None) == "mgf"
             modules = [self.encoder, self.gru, None]

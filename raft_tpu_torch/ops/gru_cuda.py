@@ -19,6 +19,15 @@ q1, z2, r2, q2).
 packed once by ``pack_weights`` and reads the x parts where they lie,
 through ``sepconv_gru_autograd``, whose backward recomputes through the
 plain version (the JAX ``_gru_bwd``).
+
+The kernel's bf16 form (``sepconv_gru_cuda`` on a bfloat16 ``h``, the JAX
+kernel at ``dtype=bfloat16``) takes h and every x part in bfloat16 and the
+weights packed by ``pack_weights_bf16``, and returns h' in bfloat16; it
+rounds where the JAX kernel rounds (``csrc/conv_phase.cuh``) and counts
+its launches in ``bf16_launches``. Its plain version is
+``sepconv_gru_plain`` on bfloat16 inputs, which is also its backward, as
+for the motion kernel (the JAX ``_gru_bwd`` recomputes through its bf16
+``reference_gru``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from raft_tpu_torch.ops.conv_pack import conv2d, round_bf16, split_tf32
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # cells computed by the CUDA kernel
+bf16_launches = 0     # cells computed by its bf16 form
 TAPS = 5
 
 
@@ -54,9 +64,8 @@ def _parts(x) -> tuple:
 
 def sepconv_gru_plain(h: torch.Tensor, x, convs) -> torch.Tensor:
     """The cell with ``F.conv2d`` (``conv_pack.conv2d``: in float32, or in
-    bfloat16 for bfloat16 inputs, the arithmetic of the step kernel's bf16
-    form; this kernel has no bf16 form yet), NHWC in and out; x parts are
-    concatenated."""
+    bfloat16 for bfloat16 inputs, the arithmetic of the kernels' bf16
+    forms), NHWC in and out; x parts are concatenated."""
     h = h.permute(0, 3, 1, 2)
     x = torch.cat(_parts(x), dim=-1)
     x = x.permute(0, 3, 1, 2)
@@ -95,7 +104,8 @@ def pack_weights(convs) -> tuple:
 
 
 def pack_weights_bf16(convs) -> tuple:
-    """``pack_weights``' layout for the step kernel's bf16 form: ``w_zr``
+    """``pack_weights``' layout for the bf16 forms of this kernel and the
+    step kernel: ``w_zr``
     (2C, 5 (C+Cx)) and ``w_q`` (C, 5 (C+Cx)) one bfloat16 matrix each (no
     lo part), the biases float32 holding bfloat16 values."""
     return tuple(t.to(torch.bfloat16).contiguous() if t.dim() == 2
@@ -121,41 +131,54 @@ _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def sepconv_gru_cuda(h: torch.Tensor, x, packed) -> torch.Tensor:
-    """Launch the kernel of ``csrc/sepconv_gru.cu`` on the current stream.
+    """Launch the kernel of ``csrc/sepconv_gru.cu`` on the current stream:
+    its float32 form, or its bf16 form when ``h`` is bfloat16.
 
     ``h`` (B, H, W, C) and ``x``, one tensor (B, H, W, Cx) or two parts:
-    float32, contiguous, on one CUDA device, C a multiple of 64 and each
-    part's channels of 16. ``packed`` is ``pack_weights`` output on the
-    same device. Returns h' (B, H, W, C).
+    all float32 or all bfloat16 (the JAX kernel casts every x part to the
+    compute dtype, h's here), contiguous, on one CUDA device, C a multiple
+    of 64 and each part's channels of 16. ``packed`` is ``pack_weights``
+    (bfloat16: ``pack_weights_bf16``) output on the same device. Returns
+    h' (B, H, W, C) in h's dtype.
     """
-    global launches
+    global launches, bf16_launches
+    xs = _parts(x)
+    if any(p.dtype != h.dtype for p in xs):
+        raise ValueError(f"the GRU kernel takes h and every x part in one "
+                         f"dtype, got h {h.dtype}, x "
+                         f"{[p.dtype for p in xs]}")
     if h.device.type != "cuda":
         raise ValueError(f"the GRU kernel needs CUDA tensors, got {h.device}")
+    bf16 = h.dtype == torch.bfloat16
     B, H, W, C = h.shape
-    xs = _parts(x)
     cxs = [p.shape[-1] for p in xs]
     if len(xs) > 2 or C % 64 or any(cx % 16 for cx in cxs):
         raise ValueError(f"C must be a multiple of 64 and x one or two parts "
                          f"of a multiple of 16 channels, got C={C}, "
                          f"x parts {cxs}")
     dev = h.device
-    check_operand("h", h, (B, H, W, C), dev)
+    dt = torch.bfloat16 if bf16 else None
+    check_operand("h", h, (B, H, W, C), dev, dt)
     for n, p in enumerate(xs):
-        check_operand(f"x part {n}", p, (B, H, W, cxs[n]), dev)
-    check_packed(packed, TAPS * (C + sum(cxs)), C, dev)
+        check_operand(f"x part {n}", p, (B, H, W, cxs[n]), dev, dt)
+    check_packed(packed, TAPS * (C + sum(cxs)), C, dev, bf16)
     out = torch.empty_like(h)
     h1, z, rh = (torch.empty_like(h) for _ in range(3))
     x1, cx1 = (xs[1].data_ptr(), cxs[1]) if len(xs) == 2 else (None, 0)
+    symbol = "raft_sepconv_gru_bf16" if bf16 else "raft_sepconv_gru"
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = build.bind("sepconv_gru", "raft_sepconv_gru", _ARGTYPES)(
+        err = build.bind("sepconv_gru", symbol, _ARGTYPES)(
             h.data_ptr(), xs[0].data_ptr(), x1,
             *[t.data_ptr() for t in packed],
             h1.data_ptr(), z.data_ptr(), rh.data_ptr(), out.data_ptr(),
             B, H, W, C, cxs[0], cx1, stream)
     if err:
-        raise RuntimeError(f"sepconv_gru kernel failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -175,8 +198,9 @@ def sepconv_gru_autograd(h: torch.Tensor, x, convs, run) -> torch.Tensor:
 
 def sepconv_gru(h: torch.Tensor, x, convs, packed) -> torch.Tensor:
     """One SepConvGRU cell: the plain version (``convs``) for a CPU tensor,
-    the CUDA kernel (``packed``, from ``pack_weights(convs)``) for a CUDA
-    tensor, differentiable either way."""
+    the CUDA kernel (``packed``, from ``pack_weights(convs)``, or
+    ``pack_weights_bf16(convs)`` for bfloat16 tensors) for a CUDA tensor,
+    differentiable either way."""
     if h.device.type == "cpu":
         return sepconv_gru_plain(h, x, convs)
     return sepconv_gru_autograd(h, x, convs,

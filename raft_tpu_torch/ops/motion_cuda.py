@@ -13,16 +13,23 @@ NHWC, as is the output (B, H, W, 128). ``convs`` are the five ``(weight,
 bias)`` pairs in torch layout, ordered (convc1, convc2, convf1, convf2,
 conv).
 
-The plain version also computes in bfloat16 for bfloat16 inputs
-(``conv_pack.conv2d``), the arithmetic of the step kernel's bf16 form
-(``ops/step_cuda.py``); this kernel has no bf16 form yet.
-
 ``motion_encoder`` is the entry point: a tensor on the CPU goes to the
 plain ``F.conv2d`` version, a CUDA tensor to the kernel in
 ``csrc/motion_fwd.cu`` (one launch, counted in ``launches``), which takes
 the weights packed once by ``pack_weights``, through
 ``motion_encoder_autograd``, whose backward recomputes through the plain
 version (the JAX ``_motion_bwd``).
+
+The kernel's bf16 form (``motion_encoder_cuda`` on bfloat16 corr and
+flow, the JAX kernel at ``dtype=bfloat16``) takes the weights packed by
+``pack_weights_bf16`` and returns bfloat16, the flow channels the given
+bfloat16 flow bit for bit; it rounds where the JAX kernel rounds
+(``csrc/conv_phase.cuh``) and counts its launches in ``bf16_launches``.
+Its plain version is ``motion_encoder_plain`` on bfloat16 inputs
+(``conv_pack.conv2d``), which is also its backward: the recompute's
+bfloat16 convolutions cast the float32 weights in the graph, so the
+gradients reach the float32 parameters (the JAX ``_motion_bwd``
+recomputes through its bf16 ``reference_motion`` the same way).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from raft_tpu_torch.ops.conv_pack import (BN, conv2d, pack_conv,
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
+bf16_launches = 0     # calls computed by its bf16 form
 # Output widths of convc1, convc2, convf1, convf2 and conv (fixed by
 # RAFT-large; csrc/conv_phase.cuh holds the same constants).
 WIDTHS = (256, 192, 128, 64, 126)
@@ -75,9 +83,9 @@ def pack_weights(convs) -> tuple:
 
 
 def pack_weights_bf16(convs) -> tuple:
-    """``pack_weights``' layout for the step kernel's bf16 form
-    (``conv_pack.pack_conv_bf16``): each matrix one bfloat16 ``(ldw,
-    rows)``, each bias float32 holding bfloat16 values."""
+    """``pack_weights``' layout for the bf16 forms of this kernel and the
+    step kernel (``conv_pack.pack_conv_bf16``): each matrix one bfloat16
+    ``(ldw, rows)``, each bias float32 holding bfloat16 values."""
     return tuple(t for w, b in convs for t in pack_conv_bf16(w, b))
 
 
@@ -110,33 +118,46 @@ _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 def motion_encoder_cuda(flow: torch.Tensor, corr: torch.Tensor,
                         packed) -> torch.Tensor:
-    """Launch the kernel of ``csrc/motion_fwd.cu`` on the current stream.
+    """Launch the kernel of ``csrc/motion_fwd.cu`` on the current stream:
+    its float32 form, or its bf16 form when ``corr`` is bfloat16.
 
-    ``flow`` (B, H, W, 2) and ``corr`` (B, H, W, Cc): float32, contiguous,
-    on one CUDA device, Cc a multiple of 4. ``packed`` is ``pack_weights``
-    output on the same device. Returns (B, H, W, 128).
+    ``flow`` (B, H, W, 2) and ``corr`` (B, H, W, Cc): both float32 or both
+    bfloat16, contiguous, on one CUDA device, Cc a multiple of 4.
+    ``packed`` is ``pack_weights`` (bfloat16: ``pack_weights_bf16``)
+    output on the same device. Returns (B, H, W, 128) in that dtype, the
+    JAX output dtype ``promote(compute dtype, flow.dtype)`` with the
+    compute dtype corr's; a flow of another dtype than corr's is refused.
     """
-    global launches
+    global launches, bf16_launches
+    if flow.dtype != corr.dtype:
+        raise ValueError(f"the motion kernel takes flow and corr of one "
+                         f"dtype, got {flow.dtype} and {corr.dtype}")
     if corr.device.type != "cuda":
         raise ValueError(f"the motion kernel needs CUDA tensors, got "
                          f"{corr.device}")
+    bf16 = corr.dtype == torch.bfloat16
     B, H, W, cc = corr.shape
     if cc % 4:
         raise ValueError(f"Cc must be a multiple of 4, got {cc}")
     dev = corr.device
-    check_operand("corr", corr, (B, H, W, cc), dev)
-    check_operand("flow", flow, (B, H, W, 2), dev)
-    check_packed(packed, cc, dev)
-    out = torch.empty(B, H, W, OUT_CHANNELS, device=dev)
-    scratch = torch.empty(B * H * W * SCRATCH, device=dev)
+    dt = torch.bfloat16 if bf16 else None
+    check_operand("corr", corr, (B, H, W, cc), dev, dt)
+    check_operand("flow", flow, (B, H, W, 2), dev, dt)
+    check_packed(packed, cc, dev, bf16)
+    out = torch.empty(B, H, W, OUT_CHANNELS, device=dev, dtype=corr.dtype)
+    scratch = torch.empty(B * H * W * SCRATCH, device=dev, dtype=corr.dtype)
+    symbol = "raft_motion_fwd_bf16" if bf16 else "raft_motion_fwd"
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = build.bind("motion_fwd", "raft_motion_fwd", _ARGTYPES)(
+        err = build.bind("motion_fwd", symbol, _ARGTYPES)(
             corr.data_ptr(), flow.data_ptr(), *[t.data_ptr() for t in packed],
             scratch.data_ptr(), out.data_ptr(), B, H, W, cc, stream)
     if err:
-        raise RuntimeError(f"motion_fwd kernel failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -156,8 +177,9 @@ def motion_encoder_autograd(flow: torch.Tensor, corr: torch.Tensor, convs,
 def motion_encoder(flow: torch.Tensor, corr: torch.Tensor, convs,
                    packed) -> torch.Tensor:
     """The motion encoder: the plain version (``convs``) for a CPU tensor,
-    the CUDA kernel (``packed``, from ``pack_weights(convs)``) for a CUDA
-    tensor, differentiable either way."""
+    the CUDA kernel (``packed``, from ``pack_weights(convs)``, or
+    ``pack_weights_bf16(convs)`` for bfloat16 tensors) for a CUDA tensor,
+    differentiable either way."""
     if corr.device.type == "cpu":
         return motion_encoder_plain(flow, corr, convs)
     return motion_encoder_autograd(

@@ -13,15 +13,15 @@ is neither.
 
 RAFT-large trains in float32 or under the bf16 mixed-precision policy
 (``RAFTConfig(mixed_precision=True)``, and the explicit levers
-``corr_mxu_dtype="bfloat16"`` and ``corr_dtype="bfloat16"``), as in the JAX
-package: bfloat16 encoders and update block on float32 parameters, float32
-flow arithmetic and loss, float32 master parameters, AdamW in float32 and no
-loss scaling.
+``corr_mxu_dtype="bfloat16"`` and ``corr_dtype="bfloat16"``), on either
+``update_impl``, as in the JAX package: bfloat16 encoders and update block
+on float32 parameters, float32 flow arithmetic and loss, float32 master
+parameters, AdamW in float32 and no loss scaling.
 
 Not ported yet, each refused with ``NotImplementedError`` when asked for:
-RAFT-small (``RAFTConfig(small=True)``), ``update_impl="chain"`` under the
-bf16 policy, the sparse family's bf16, the data pipeline and the
-``--stage`` CLI (``dataloader=None``),
+RAFT-small (``RAFTConfig(small=True)``, in float32 or bf16), the sparse
+family's bf16, the data pipeline and the ``--stage`` CLI
+(``dataloader=None``),
 checkpoints and resume, the preemption guard, the logger's files and
 TensorBoard (``log_dir``), validation in the loop, spatial sharding and the
 other model families (``keypoint_transformer``, ``dual_query``,
@@ -142,11 +142,7 @@ def train(tcfg: TrainConfig,
         "async checkpointing": tcfg.async_checkpointing,
         "the training logger (log_dir)": log_dir is not None,
         "spatial sharding": spatial_shards != 1,
-        "RAFT-small training": getattr(mcfg, "small", False),
-        "update_impl='chain' under the bf16 policy (the bf16 chain "
-        "kernels, motion_fwd and sepconv_gru in bfloat16)":
-            update_impl == "chain" and getattr(mcfg, "mixed_precision",
-                                               False)})
+        "RAFT-small training": getattr(mcfg, "small", False)})
     if update_impl not in UPDATE_IMPLS:
         raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
                          f"got {update_impl!r}")

@@ -285,18 +285,20 @@ def test_bf16_step_matches_pallas_fused_step(step_setup, depth):
 def test_bf16_update_block_matches_jax(step_setup):
     """``BasicUpdateBlock`` in bfloat16 (the step plus the bfloat16 flow
     and mask heads) against the flax block at ``dtype=bfloat16`` on its
-    conv path, the final iteration's outputs; ``chain`` refuses bf16."""
+    conv path, the final iteration's outputs; ``chain`` runs bf16 too (the
+    motion and GRU kernels' bf16 forms on the card, their plain versions
+    here) and lies within the same bars."""
     variables, _, block, arrays, ports = step_setup
     jblock = JaxUpdateBlock(dtype=jnp.bfloat16)
     want = _compiled(lambda v, *a: jblock.apply(v, *a, compute_mask=True),
                      variables, *arrays)
     with torch.inference_mode():
         got = block(*ports, compute_mask=True)
-        with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
-            block(*ports, update_impl="chain")
-    for a, b, bar in zip(got, want, (_bar, _bar, _own_bar)):
-        assert a.dtype == BF16
-        _assert_near(a, b, bar(b, 8 * EPS))
+        chain = block(*ports, update_impl="chain")
+    for outs in (got, chain):
+        for a, b, bar in zip(outs, want, (_bar, _bar, _own_bar)):
+            assert a.dtype == BF16
+            _assert_near(a, b, bar(b, 8 * EPS))
 
 
 # -- the encoder ------------------------------------------------------------
@@ -548,11 +550,11 @@ def test_bf16_storage_trains_through_the_pyramid(frames):
 def test_mixed_predictor_and_refusals(frames):
     """``load_predictor(mixed_precision=)`` builds the policy's model with
     the float32 weights (``corr_dtype`` pins the fixed engine, as in JAX),
-    whose training forward returns float32 predictions; what stays
-    unported refuses: ``update_impl="chain"`` under the policy in training
-    (``train`` and the training forward, also with an explicit
-    ``corr_mxu_dtype="bfloat16"``), RAFT-small under the policy, and the
-    sparse family's bf16."""
+    whose training forward returns float32 predictions, on
+    ``update_impl="chain"`` too (``train`` takes a step there, also with an
+    explicit ``corr_mxu_dtype="bfloat16"``); RAFT-small under the policy
+    builds with float32 parameters and returns float32 flows; what stays
+    unported refuses: the sparse family's bf16."""
     pred = evaluate.load_predictor(WEIGHTS, iters=2, device="cpu",
                                    mixed_precision=True)
     cfg = pred.model.config
@@ -565,19 +567,29 @@ def test_mixed_predictor_and_refusals(frames):
     assert pinned.model.config.corr_storage(True) == "bfloat16"
     preds = pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True)
     assert preds.dtype == torch.float32 and preds.shape == (1, 1, 64, 96, 2)
-    with pytest.raises(NotImplementedError, match="chain"):
-        train(TrainConfig(num_steps=1), RAFTConfig(mixed_precision=True),
-              dataloader=[], device="cpu", update_impl="chain")
-    with pytest.raises(NotImplementedError, match="chain"):
-        train(TrainConfig(num_steps=1), RAFTConfig(
-            mixed_precision=True, alternate_corr=True,
-            corr_mxu_dtype="bfloat16"),
-            dataloader=[], device="cpu", update_impl="chain")
-    with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
-        pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True,
-                   update_impl="chain")
-    with pytest.raises(NotImplementedError, match="RAFT-small"):
-        RAFT(RAFTConfig(small=True, mixed_precision=True))
+    batch = {"image1": frames[0][:, :32, :48],
+             "image2": frames[1][:, :32, :48],
+             "flow": np.zeros((1, 32, 48, 2), np.float32),
+             "valid": np.ones((1, 32, 48), np.float32)}
+    for cfg in (RAFTConfig(mixed_precision=True),
+                RAFTConfig(mixed_precision=True, alternate_corr=True,
+                           corr_mxu_dtype="bfloat16")):
+        state = train(TrainConfig(num_steps=1, iters=1, batch_size=1,
+                                  image_size=(32, 48)), cfg,
+                      dataloader=[batch], restore_ckpt=WEIGHTS, device="cpu",
+                      update_impl="chain")
+        assert state.step == 1
+    chain = pred.model(_t(frames[0]), _t(frames[1]), iters=1, train=True,
+                       update_impl="chain")
+    assert chain.dtype == torch.float32 and bool(torch.isfinite(chain).all())
+    small = RAFT(RAFTConfig(small=True, mixed_precision=True))
+    small.load_state_dict(load_npz(os.path.join(GOLDEN,
+                                                "weights_small.npz")))
+    assert all(p.dtype == torch.float32 for p in small.parameters())
+    with torch.inference_mode():
+        low, up = small.eval()(_t(frames[0]), _t(frames[1]), iters=1)
+    assert low.dtype == up.dtype == torch.float32
+    assert bool(torch.isfinite(up).all())
     with pytest.raises(NotImplementedError, match="bf16 policy"):
         evaluate.load_predictor("random", model_family="sparse",
                                 mixed_precision=True, device="cpu")

@@ -466,12 +466,14 @@ def test_every_parameter_gets_a_finite_gradient(levers):
 
 
 def test_train_runs_the_policy_and_refuses_what_is_not_ported():
-    """``train()`` under ``mixed_precision=True`` and the explicit bf16
-    levers takes its steps on the CPU (no step skipped, every parameter
-    moved), and the bf16 weight casts of inference are not served to a
-    training forward. What stays unported refuses with
-    ``NotImplementedError``: RAFT-small under the policy,
-    ``update_impl="chain"`` under bf16, the sparse family's bf16."""
+    """``train()`` under ``mixed_precision=True`` (on both
+    ``update_impl``s) and the explicit bf16 levers takes its steps on the
+    CPU (no step skipped, every parameter moved), and the bf16 weight casts
+    of inference are not served to a training forward; the chain's
+    training forward under the policy gives the step's predictions (both
+    are the same plain versions on the CPU). What stays unported refuses
+    with ``NotImplementedError``: RAFT-small training, under the policy
+    too, and the sparse family's bf16."""
     batches = [{k: v[:, :32, :48] for k, v in _batch().items()}] * 2
     logged = []
 
@@ -479,32 +481,33 @@ def test_train_runs_the_policy_and_refuses_what_is_not_ported():
         def push(self, metrics, lr):
             logged.append(metrics)
 
-    for cfg in (RAFTConfig(mixed_precision=True),
-                RAFTConfig(alternate_corr=True, corr_mxu_dtype="bfloat16"),
-                RAFTConfig(corr_dtype="bfloat16")):
+    for cfg, impl in (
+            (RAFTConfig(mixed_precision=True), "step"),
+            (RAFTConfig(mixed_precision=True), "chain"),
+            (RAFTConfig(alternate_corr=True, corr_mxu_dtype="bfloat16"),
+             "step"),
+            (RAFTConfig(corr_dtype="bfloat16"), "step")):
         logged.clear()
         state = train(TrainConfig(num_steps=2, iters=2, batch_size=1,
                                   image_size=(32, 48)), cfg,
                       dataloader=batches, restore_ckpt=WEIGHTS,
-                      device="cpu", logger=Logger())
+                      device="cpu", logger=Logger(), update_impl=impl)
         assert state.step == 2 and len(logged) == 2
         assert not any(m["skipped_steps"] for m in logged)
         assert all(np.isfinite(m["loss"]) for m in logged)
         start = load_npz(WEIGHTS)
         assert all(not torch.equal(p.detach(), start[n])
                    for n, p in state.model.named_parameters())
-    with pytest.raises(NotImplementedError, match="RAFT-small"):
-        RAFT(RAFTConfig(small=True, mixed_precision=True))
-    with pytest.raises(NotImplementedError, match="RAFT-small"):
-        train(TrainConfig(num_steps=1), RAFTConfig(small=True),
-              dataloader=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="chain"):
-        train(TrainConfig(num_steps=1), RAFTConfig(mixed_precision=True),
-              dataloader=[], device="cpu", update_impl="chain")
-    with pytest.raises(NotImplementedError, match="chain"):
-        RAFT(RAFTConfig(mixed_precision=True))(
-            _t(batches[0]["image1"]), _t(batches[0]["image2"]), iters=1,
-            train=True, update_impl="chain")
+    for cfg in (RAFTConfig(small=True, mixed_precision=True),
+                RAFTConfig(small=True)):
+        with pytest.raises(NotImplementedError, match="RAFT-small"):
+            train(TrainConfig(num_steps=1), cfg, dataloader=[], device="cpu")
+    model = RAFT(RAFTConfig(mixed_precision=True))
+    model.load_state_dict(load_npz(WEIGHTS))
+    step, chain = (model(_t(batches[0]["image1"]), _t(batches[0]["image2"]),
+                         iters=1, train=True, update_impl=impl)
+                   for impl in ("step", "chain"))
+    assert chain.dtype == torch.float32 and torch.equal(chain, step)
     with pytest.raises(NotImplementedError, match="bf16"):
         train(TrainConfig(model_family="sparse", num_steps=1),
               OursConfig(mixed_precision=True), dataloader=[], device="cpu")

@@ -298,28 +298,30 @@ def test_iters_and_unported_configs_raise(port_model, frames):
         evaluate.FlowPredictor(port_model, iters=0, device="cpu")
     small = RAFT(RAFTConfig(small=True))
     assert small.update_block.encoder.convc1.in_channels == 4 * 7 * 7
-    # the bf16 policy builds and returns float32 flows; what it does not
-    # port yet (the chain's bf16 kernels, in inference and in training;
-    # RAFT-small under the policy) refuses
+    # the bf16 policy builds and returns float32 flows on both update_impls
+    # (on the CPU both are the same plain versions), RAFT-small under it
+    # too; training RAFT-small under it refuses
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train import train
 
     mixed = RAFT(RAFTConfig(mixed_precision=True))
     mixed.load_state_dict(port_model.state_dict())
+    small_mixed = RAFT(RAFTConfig(small=True, mixed_precision=True))
     with torch.inference_mode():
         low, up = mixed.eval()(_t(frames[0]), _t(frames[1]), iters=1)
         assert low.dtype == up.dtype == torch.float32
         assert bool(torch.isfinite(up).all())
-        with pytest.raises(NotImplementedError, match="bf16 chain kernels"):
-            mixed(_t(frames[0]), _t(frames[1]), iters=1, update_impl="chain")
-    for cfg in (RAFTConfig(mixed_precision=True),
-                RAFTConfig(mixed_precision=True, alternate_corr=True,
-                           corr_mxu_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="chain"):
-            train(TrainConfig(num_steps=1), cfg, dataloader=[], device="cpu",
-                  update_impl="chain")
+        chain = mixed(_t(frames[0]), _t(frames[1]), iters=1,
+                      update_impl="chain")
+        assert all(torch.equal(a, b) for a, b in zip(chain, (low, up)))
+        assert small_mixed.compute_dtype == torch.bfloat16
+        flows = small_mixed.eval()(_t(frames[0]), _t(frames[1]), iters=1)
+        assert all(f.dtype == torch.float32 and bool(torch.isfinite(f).all())
+                   for f in flows)
     with pytest.raises(NotImplementedError, match="RAFT-small"):
-        RAFT(RAFTConfig(small=True, mixed_precision=True))
+        train(TrainConfig(num_steps=1),
+              RAFTConfig(small=True, mixed_precision=True), dataloader=[],
+              device="cpu", update_impl="chain")
     with pytest.raises(ValueError):
         RAFT(RAFTConfig(normalized_coords=True))
 

@@ -298,11 +298,17 @@ def test_unreadable_checkpoints_are_refused(tmp_path):
 
 
 def test_small_training_and_bf16_are_refused():
+    """RAFT-small training is refused, in float32 and under the bf16
+    policy; the policy itself builds RAFT-small (float32 parameters, a
+    bfloat16 compute dtype) for inference."""
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train import train
 
-    with pytest.raises(NotImplementedError, match="RAFT-small training"):
-        train(TrainConfig(num_steps=1), RAFTConfig(small=True),
-              dataloader=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        RAFT(RAFTConfig(small=True, mixed_precision=True))
+    for mixed in (False, True):
+        with pytest.raises(NotImplementedError, match="RAFT-small training"):
+            train(TrainConfig(num_steps=1),
+                  RAFTConfig(small=True, mixed_precision=mixed),
+                  dataloader=[], device="cpu")
+    model = RAFT(RAFTConfig(small=True, mixed_precision=True))
+    assert model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
