@@ -281,6 +281,52 @@ def tensor_core_bf16_ops(cuobjdump: str, library: str) -> dict:
     return _tensor_core_ops(cuobjdump, library, "BF16")
 
 
+def widest_hgmma_n(ops: dict) -> int:
+    """The widest N of the warpgroup MMAs (HGMMA.64xNx16...) among ``ops``
+    (tensor_core_*_ops), 0 if there is none."""
+    ns = [int(m.group(1)) for op in ops
+          for m in [re.match(r"HGMMA\.64x(\d+)x", op)] if m]
+    return max(ns, default=0)
+
+
+# The feature shapes at which chip_smoke reports the bf16 tile's waves
+# (label, batch, height, width): a Sintel pair and its B=2 and B=4
+# batches, and the chairs training batch.
+BF16_WAVE_SHAPES = (("sintel B=1", 1, 55, 128), ("sintel B=2", 2, 55, 128),
+                    ("sintel B=4", 4, 55, 128), ("chairs B=8", 8, 46, 62))
+
+
+def bf16_tile_geometry(torch, conv_tile, phases):
+    """The bf16 tile's plan of a program (ops/conv_tile.py): each conv's
+    block and consumer widths, A route and K stages, and at each of
+    BF16_WAVE_SHAPES each phase's tiles and waves over the launch's blocks
+    (one an SM, at most the busiest phase's tiles)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = conv_tile.plan(phases)
+    convs = [{"conv": p.conv.name, "block_n": p.block_n,
+              "wgmma": f"m64n{p.consumer_n}k16", "a": p.routes[0],
+              "stages": p.stages} for ph in plans for p in ph]
+    waves = {}
+    for label, b, h, w in BF16_WAVE_SHAPES:
+        blocks = min(sms, max(sum(p.tiles(b, h, w) for p in ph)
+                              for ph in plans))
+        waves[label] = {"blocks": blocks, "phases": [
+            {"convs": "|".join(r["convs"]), "tiles": r["tiles"],
+             "waves": round(r["waves"], 3)}
+            for r in conv_tile.waves(phases, b, h, w, blocks)]}
+    return {"convs": convs, "waves": waves}
+
+
+def print_tile_geometry(name, geo):
+    print(f"  {name} tile: " + ", ".join(
+        f"{c['conv']} {c['block_n']} ({c['wgmma']}, A {c['a']}, "
+        f"{c['stages']} stages)" for c in geo["convs"]))
+    for label, wv in geo["waves"].items():
+        print(f"  {name} waves at {label} on {wv['blocks']} blocks: "
+              + ", ".join(f"{r['convs']} {r['tiles']} ({r['waves']:.2f})"
+                          for r in wv["phases"]))
+
+
 def conv_tile_rates(ms: float, work) -> dict:
     """A conv-tile kernel's f32 SIMT bound (ms, the rate of the tile before
     3xTF32) and its achieved rate in f32-grade TFLOP/s."""
@@ -2335,6 +2381,8 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
         print(f"  {lib} SASS, tensor-core BF16 MMAs: {ops}")
         if not ops:
             fail(f"{lib} has no tensor-core BF16 MMA in its SASS")
+        if lib == "update_step" and widest_hgmma_n(ops) <= 64:
+            fail(f"{lib}'s bf16 tile has no warpgroup MMA wider than 64x64x16")
     corr_cuda, step_cuda = pkg.corr_cuda, pkg.step_cuda
     bf16_lookup_checks(torch, corr_cuda, pkg.corr, pkg.sampling, rng, radius,
                        feat, err)
@@ -2457,6 +2505,10 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=time_ms(torch, lambda: lib(*lib_inputs)),
                 tflops=work[0] / kernel_ms / 1e9)
+    for d in step.values():
+        d["bound_share_q"] = d["bound_ms"] / d["ms_q"]
+    geo = bf16_tile_geometry(torch, pkg.conv_tile,
+                             pkg.conv_tile.step_phases(128, 128, 324, True))
     rows.append({
         "name": "update_step_bf16", "route": "cuda",
         "source": "raft_tpu_torch/csrc/update_step.cu",
@@ -2466,7 +2518,7 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
         "max_abs_err": err["update_step_bf16"], **step["mgf"],
         "depth": "mgf", **{f"{k}_mg": v for k, v in step["mg"].items()},
         "shape": f"B=1 {h}x{w}, C=128, Cc=324, bfloat16",
-        "sass_bf16_mma": sass["update_step_bf16"]})
+        "sass_bf16_mma": sass["update_step_bf16"], "tile": geo})
     for r in rows:
         extra = (f", queued {r['ms_q']:.4f} ms" if "ms_q" in r else "")
         print(f"{r['name']}: {r['ms']:.4f} ms a launch{extra}, bound "
@@ -2474,11 +2526,14 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
               f"and HBM), plain {r['plain_ms']:.4f} ms, library "
               + ("none" if r["library_ms"] is None
                  else f"{r['library_ms']:.4f} ms (cuDNN bf16)"))
-    mg = step["mg"]
-    print(f"update_step_bf16 'mg': {mg['ms']:.4f} ms a launch, queued "
-          f"{mg['ms_q']:.4f} ms, bound {mg['bound_ms']:.4f} ms, plain "
-          f"{mg['plain_ms']:.4f} ms, library {mg['library_ms']:.4f} ms "
-          f"(cuDNN bf16), {mg['tflops']:.2f} TFLOP/s")
+    for depth in ("mgf", "mg"):
+        d = step[depth]
+        print(f"update_step_bf16 '{depth}': {d['ms']:.4f} ms a launch, queued "
+              f"{d['ms_q']:.4f} ms, bound {d['bound_ms']:.4f} ms, "
+              f"{100 * d['bound_share_q']:.1f}% of the bound reached (queued), "
+              f"plain {d['plain_ms']:.4f} ms, library {d['library_ms']:.4f} ms "
+              f"(cuDNN bf16), {d['tflops']:.2f} TFLOP/s")
+    print_tile_geometry("update_step_bf16 'mgf'", geo)
     for key, row in corr_by.items():
         print(f"corr_fwd_bf16 sintel {key} ({row['shape']}): {row['ms']:.4f} "
               f"ms a launch, queued {row['ms_q']:.4f} ms, bound "
@@ -2678,6 +2733,8 @@ def mixed_chain_phase(torch, pkg, weights, padder, frames, rng, feat,
         print(f"  {lib} SASS, tensor-core BF16 MMAs: {ops}")
         if not ops:
             fail(f"{lib} has no tensor-core BF16 MMA in its SASS")
+        if widest_hgmma_n(ops) <= 64:
+            fail(f"{lib}'s bf16 tile has no warpgroup MMA wider than 64x64x16")
     chain = pkg.load_predictor(weights, iters=SINTEL_ITERS,
                                mixed_precision=True, update_impl="chain")
     block = chain.model.update_block
@@ -2717,6 +2774,10 @@ def mixed_chain_phase(torch, pkg, weights, padder, frames, rng, feat,
         r["sass_bf16_mma"] = sass[r["name"]]
         r["readings"] = {k: v for k, v in readings.items()
                          if k.startswith(r["name"])}
+        r["tile"] = bf16_tile_geometry(torch, pkg.conv_tile, (
+            pkg.conv_tile.motion_phases(324) if r["name"] == "motion_fwd_bf16"
+            else pkg.conv_tile.gru_phases(128, (128, 128))))
+        print_tile_geometry(r["name"], r["tile"])
     rows[0].update(ms_per_pair_mixed_chain=ms, ms_per_pair_mixed_step=step)
     phase_seconds("mixed chain: serve and timings", t0)
     return rows
@@ -3166,8 +3227,9 @@ def main():
     from raft_tpu_torch.models import corr
     from raft_tpu_torch.models.ours import SparseRAFT
     from raft_tpu_torch.models.raft import RAFT
-    from raft_tpu_torch.ops import (build, corr_cuda, gru_cuda, motion_cuda,
-                                    msda, msda_cuda, sampling, step_cuda)
+    from raft_tpu_torch.ops import (build, conv_tile, corr_cuda, gru_cuda,
+                                    motion_cuda, msda, msda_cuda, sampling,
+                                    step_cuda)
     from raft_tpu_torch.optim import make_schedule
     from raft_tpu_torch.parallel.train_step import (create_train_state,
                                                     make_train_step)
@@ -3464,7 +3526,8 @@ def main():
         FlowPredictor=FlowPredictor,
         validate_golden_small=validate_golden_small,
         forward_interpolate=forward_interpolate, build=build, corr=corr,
-        sampling=sampling, validate_golden=validate_golden)
+        sampling=sampling, validate_golden=validate_golden,
+        conv_tile=conv_tile)
 
     # -- RAFT-small: goldens, then Sintel-size pairs -----------------------
     t0 = time.perf_counter()

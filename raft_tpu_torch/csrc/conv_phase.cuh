@@ -2,8 +2,10 @@
 // kernels (sepconv_gru.cu, motion_fwd.cu, update_step.cu), NVIDIA Hopper
 // (sm_90a): an implicit GEMM on the tensor cores in 3xTF32, which gives
 // float32-grade products, with float32 accumulation. Each of the three also
-// runs a bf16 form of the tile (bfloat16 activations and weights, one bf16
-// product pass; "the bf16 form" below), for the mixed-precision policy.
+// has a bf16 form (bfloat16 activations and weights, one bf16 product pass;
+// "the bf16 form" below), for the mixed-precision policy, on a
+// warp-specialised tile of its own (a producer warpgroup feeding two
+// consumer warpgroups through an mbarrier ring, TMA for the weights).
 //
 // A convolution over NHWC float32 tensors is an implicit GEMM: M = pixels,
 // N = output channels, K = taps x input channels. The A operand is read
@@ -85,6 +87,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,6 +130,7 @@ enum Epilogue : int {
                   //         n >= C -> out1 = sigmoid(acc + b) * h (r * h)
   kBlend = 2,     // N = C: out = (1 - z) * h + z * tanh(acc + b)
   kBiasWarp = 3,  // N = 2: out = acc + b, one warp per pixel
+  kBias = 4,      // the bf16 tile's N = 2: out[m, n] = acc + b for n < N
 };
 
 // T is the activations' and the weights' type: float (3xTF32 products,
@@ -183,17 +187,12 @@ __device__ __forceinline__ int chunk_at(int row, int c) {
 }
 
 // The bf16 form's ring: a stage is BKH = 64 bfloat16 K entries a row, the
-// same 128 bytes as a float32 stage, so the swizzle and the loaders' rows
+// same 128 bytes as a float32 stage, so the swizzle and its producer's rows
 // are the float32 tiles'.
 constexpr int BKH = 64;
 constexpr int kRowDstH = kRowStep / 8 * (kSBO / 2);  // bfloat16s kRowStep rows on
 static_assert(BKH * 2 == 128, "a bfloat16 stage of a row is one 128-byte swizzle row");
 static_assert(BKH == 4 * KC, "a bfloat16 stage is four chunks");
-
-struct __align__(1024) SmemBf16 {
-  bf16 A[kStages][BM * BKH];  // pixels x K
-  bf16 B[kStages][BN * BKH];  // channels x K
-};
 
 // Element offset of the 16-byte chunk (row, K entries 8 c .. 8 c + 7) in a
 // swizzled bfloat16 tile.
@@ -204,10 +203,6 @@ __device__ __forceinline__ int chunk_at_h(int row, int c) {
 template <typename T>
 struct SmemOf {
   using type = Smem;
-};
-template <>
-struct SmemOf<bf16> {
-  using type = SmemBf16;
 };
 // Dynamic shared memory of a block: the ring, + alignment slack.
 template <typename T>
@@ -325,29 +320,6 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// d (+)= a * b over one k16 step, a 64 x 64 x 16 bfloat16 product of the
-// warpgroup on the tensor cores with f32 accumulation, both operands K-major
-// from shared memory; d is overwritten when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -638,16 +610,60 @@ __device__ void conv_n2_pixels(const Conv& c, int M, int H, int W, int warp, int
 
 // ---- the bf16 form ----------------------------------------------------------
 //
-// The same tile, ring and epilogue places with bfloat16 activations and
-// weights (the TPU kernels' compute dtype bfloat16): a stage is BKH = 64 K
-// entries (four chunks), A and B both K-major in shared memory with the
-// 128-byte swizzle, and each k16 step is one wgmma m64n64k16 bf16 product
-// with f32 accumulation (the float32 form runs three TF32 products per k8
-// step). Operand copies: 16 bytes (8 channels) a copy; a part whose channels
-// are a multiple of 4 but not of 8 (the lookup's 324) has 8-byte aligned
-// pixels and takes two 8-byte copies (cached in L1: only a launch input may
-// be such a part); the flow's 4-byte pixels 4-byte copies (4 taps a
-// 16-byte slot).
+// bfloat16 activations and weights (the TPU kernels' compute dtype), f32
+// accumulation, on a warp-specialised tile of its own. A block is three
+// warpgroups, one block an SM: two consumers (warps 0-7) and a producer
+// (warps 8-11). It computes 64 pixels of one image row (a row segment: x0
+// .. x0 + 63, ceil(W / 64) segments a row, the columns past W masked) x
+// block_n output channels, block_n the whole N of the conv up to 256 (a
+// multiple of 64 dividing the packed columns ldw; the Python plan,
+// ops/conv_tile.py, sets it for each conv). Consumer c takes columns c *
+// block_n / 2 onward, one wgmma m64n{block_n / 2}k16 a k16 step (n128 for
+// the N = 256 convs, n96 for convc2's 192, n64 for 128, n32 for convf2's
+// 64). Both consumers read the same A stage, so each pixel's im2col column
+// is gathered once per conv (a 64 x 64 tile gathers it once per 64 output
+// channels: four times for the GRU's gates).
+//
+// The K loop is a ring of kStagesH stages in shared memory, each BKH = 64 K
+// entries: A (64 pixels x 128 bytes) and B (block_n channels x 128 bytes),
+// both K-major with the 128-byte swizzle. The producer fills it, signalling
+// each stage on its "full" mbarrier:
+//   - B, the weights (stored ldw x K, K contiguous), by one TMA 2-D tile
+//     load a stage (box 64 K x block_n rows, zero fill past K);
+//   - A, where every part's channels are a multiple of 64 (h, inp,
+//     [motion | flow] and the scratch buffers), by one TMA 4-D tile load a
+//     stage of the part seen as (C, W, H, B): a stage is then 64 channels
+//     of one (tap, part), so it is the box (64 channels, 64 pixels, 1, 1)
+//     at (c0, x0 + dx, y + dy, b), the tap's shift, and TMA's zero fill
+//     outside the tensor is the convs' zero padding at the image edge (and
+//     past W). One thread issues both loads with the stage's byte count;
+//   - A otherwise (convc1's lookup of 324 channels, 648 bytes a pixel,
+//     which TMA's 16-byte stride rule refuses; convf1's 2-channel flow), by
+//     cp.async from the 128 producer threads (8 a pixel, zero-filled in the
+//     padding and past W): 16-byte copies where the pixel stride allows,
+//     two 8-byte ones for the lookup, 4-byte ones (4 taps a 16-byte chunk)
+//     for the flow; the 8- and 4-byte copies cache in L1 and are taken only
+//     by launch inputs. Each thread keeps kLag stages of copies in flight
+//     and publishes the oldest (cp.async.wait_group, a proxy fence into the
+//     async proxy, its arrival on the full barrier).
+// The consumers wait on "full", issue the stage's four wgmma, commit, and
+// keep one group in flight (wgmma.wait_group 1): the stage before is then
+// multiplied and its warps free it on its "empty" mbarrier, on which the
+// producer waits before it refills it. The K loop has no __syncthreads();
+// the ring runs on across tiles and phases, so the producer loads a tile's
+// first stages while the consumers run the epilogue of the one before. One
+// accumulator a tile: the products of bfloat16 values are exact in f32.
+//
+// Why, measured on an H100 (scripts/conv_tile_bench.py bf16 and its trace
+// variant; PERF.md): a stage of the GRU's gates (40 KB of copies, 2.1
+// MFLOP of products) takes about 1,000 cycles, paced by the copies from L2
+// more than by the products. With A gathered by cp.async for every conv,
+// the producer took longer to issue and land a stage than the consumers
+// took to multiply it (and with cp.async.mbarrier.arrive.noinc signalling
+// the copies, it issued a stage only once the one before had landed);
+// 128-pixel blocks with their consumers splitting the pixels, and clusters
+// of two blocks sharing each stage's weights by TMA multicast, were both
+// slower than this tile.
 //
 // Rounding, as the JAX kernels' (step_pallas.py, gru_pallas.py, flax Conv
 // at dtype bfloat16): each conv's f32 sum is rounded to bfloat16 and the
@@ -655,7 +671,9 @@ __device__ void conv_n2_pixels(const Conv& c, int M, int H, int W, int warp, int
 //   kBiasRelu: relu(v);
 //   kGates: z = bf16(sigmoid(v)); r * h as bf16(bf16(sigmoid(v)) * h);
 //   kBlend: q = bf16(tanh(v)), h' = bf16(bf16(bf16(1 - z) * h) + bf16(z * q));
-//   kBiasWarp: f32 sums of the exact products of bfloat16 values, then v.
+//   kBias (the flow head's N = 2 conv, on the tile like the others, its
+//     columns padded to 64): v, f32 sums of the exact products of bfloat16
+//     values rounded once.
 // Each value is computed in f32 registers and rounded where the JAX kernel
 // rounds.
 
@@ -669,14 +687,305 @@ __device__ __forceinline__ void put_bf2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// One BM x BN output tile of a bfloat16 convolution `c`.
-__device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, SmemBf16& sm) {
-  const int tid = threadIdx.x;
-  const int mtiles = (M + BM - 1) / BM;
-  const int m0 = (tile % mtiles) * BM;
-  const int n0 = (tile / mtiles) * BN;
+constexpr int kConsumers = 2;                  // consumer warpgroups a block
+constexpr int kProducer = 128 * kConsumers;    // the producer's first thread
+constexpr int kThreadsH = kProducer + 128;
+constexpr int kStagesH = 4;                    // depth of the ring
+constexpr int kMaxBlockN = 256;                // a block's output channels
+// full: a producer warp's arrival each (once its copies have landed), + the
+// expect_tx of the stage's TMA loads
+constexpr int kProducerWarps = 4;
+constexpr int kFullCount = kProducerWarps + 1;
+// Stages of cp.async copies a producer thread keeps in flight before it
+// publishes the oldest (kLag < kStagesH - 1, or the ring deadlocks: the
+// consumers free a stage only once they hold the next).
+constexpr int kLag = 2;
+static_assert(kLag < kStagesH - 1, "a published stage for the consumers while the producer waits");
+constexpr int kEmptyCount = 4 * kConsumers;    // a warp of each consumer
+static_assert(kMaxBlockN / kConsumers <= 128, "a consumer's wgmma is at most n128");
+
+// The Python plan of one conv (ops/conv_tile.py): its block's output
+// channels, whether A comes by TMA, and each part's cp.async width.
+struct ConvPlan {
+  int block_n;
+  int a_tma;
+  int copy[kMaxParts];
+};
+constexpr int kPlanInts = 2 + kMaxParts;  // ints a conv slot in the plan array
+
+// A consumer's staged sums, bfloat16 pairs: 64 rows of up to 64 pairs, + 4
+// words of padding a row, so that a fragment store's 8 rows x 4 pairs fall
+// in 32 banks.
+constexpr int kEpiLd = kMaxBlockN / kConsumers / 2 + 4;
+
+struct __align__(1024) SmemH {
+  bf16 A[kStagesH][BM * BKH];          // pixels x K
+  bf16 B[kStagesH][kMaxBlockN * BKH];  // channels x K
+  uint64_t full[kStagesH];
+  uint64_t empty[kStagesH];
+  uint32_t epi[kConsumers][BM * kEpiLd];
+};
+// Dynamic shared memory of a bf16 block: the ring, + alignment slack.
+constexpr int kSmemBytesH = sizeof(SmemH) + 1024;
+
+// The bf16 program: the phases, each conv's plan, its weights' TMA
+// descriptor and (a_tma) each part's, passed as a __grid_constant__
+// parameter; the row segments' geometry.
+struct ProgramH {
+  CUtensorMap wmap[kMaxPhases][kMaxConvs];
+  CUtensorMap amap[kMaxPhases][kMaxConvs][kMaxParts];
+  PhaseT<bf16> phase[kMaxPhases];
+  ConvPlan plan[kMaxPhases][kMaxConvs];
+  int nphases;
+  int M, H, W;
+  int xtiles;  // row segments a row, ceil(W / BM)
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Waits until the barrier's round of this parity has completed. A round
+// that does not complete within 2^32 cycles (about 2 s; a fault in the
+// ring's accounting) traps the kernel, a launch error, rather than hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 255) == 0) {
+      if (t0 == 0) t0 = clock64();
+      else if (clock64() - t0 > (1LL << 32)) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, uint32_t count) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(count)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A TMA 2-D tile load of `map` at (c0, c1) (innermost first) into `dst`,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A TMA 4-D tile load of `map` at (c0, c1, c2, c3) (innermost first, signed:
+// outside the tensor reads zeros) into `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= a * b over one k16 step, a 64 x NC x 16 bfloat16 product of the
+// warpgroup on the tensor cores with f32 accumulation, both operands K-major
+// from shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_bf16_n32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n96(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int NC>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (NC == 128) wgmma_bf16_n128(d, a, b, accumulate);
+  else if constexpr (NC == 96) wgmma_bf16_n96(d, a, b, accumulate);
+  else if constexpr (NC == 64) wgmma_bf16_n64(d, a, b, accumulate);
+  else wgmma_bf16_n32(d, a, b, accumulate);
+}
+
+// A ring position: the stage and the parity of its current round.
+struct Ring {
+  int stage = 0;
+  uint32_t parity = 0;
+  __device__ void advance() {
+    if (++stage == kStagesH) stage = 0, parity ^= 1;
+  }
+};
+
+// The producer's positions: where it issues the next stage, where it next
+// publishes one (kLag behind), and the stages issued but not published.
+struct ProducerRing {
+  Ring issue, publish;
+  int pending = 0;
+};
+
+// Publish the oldest issued stage: this thread's copies of it have landed
+// (cp.async.wait_group), the proxy fence makes them visible to the tensor
+// cores, then, once the warp's lanes are there, its warp's arrival on the
+// stage's full barrier.
+__device__ __forceinline__ void publish(SmemH& sm, ProducerRing& pr) {
+  fence_async_shared();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&sm.full[pr.publish.stage]);
+  pr.publish.advance();
+  --pr.pending;
+}
+
+// At the end of a phase, and before a tile whose A comes by TMA: publish
+// every stage still pending.
+__device__ __forceinline__ void drain(SmemH& sm, ProducerRing& pr) {
+  cp_async_wait<0>();
+  while (pr.pending > 0) publish(sm, pr);
+}
+
+// Blocks' tiles of conv `c` over the program's row segments: (segments) x
+// (N tiles).
+__host__ __device__ inline int tiles_h(const ConvT<bf16>& c, const ConvPlan& pl, int M, int W,
+                                       int xtiles) {
+  return (M / W) * xtiles * (c.ldw / pl.block_n);
+}
+
+// A tile's place: image row `row` (b * H + y), its first column x0, and its
+// first output channel n0.
+struct TilePos {
+  int row, x0, n0;
+};
+
+__device__ __forceinline__ TilePos tile_pos(int tile, int block_n, int M, int W, int xtiles) {
+  const int segs = (M / W) * xtiles;
+  const int t = tile % segs;
+  return TilePos{t / xtiles, (t % xtiles) * BM, (tile / segs) * block_n};
+}
+
+// The producer's part of tile `tile` of conv `c`: for each stage, wait
+// until it is free, then load B, and A where the plan says so, by TMA onto
+// its full barrier, or A by cp.async, publishing the stage issued kLag
+// stages before.
+__device__ void produce_tile(const ConvT<bf16>& c, const ConvPlan& pl, const CUtensorMap* wmap,
+                             const CUtensorMap* amap, int M, int H, int W, int xtiles, int tile,
+                             SmemH& sm, ProducerRing& pr) {
+  const int tid = threadIdx.x - kProducer;
+  const TilePos at = tile_pos(tile, pl.block_n, M, W, xtiles);
   const int kx = c.kx, ky = c.ky, taps = kx * ky;
-  const bool two = two_channel(c);
   const bf16* in0 = c.in[0];
   const bf16* in1 = c.in[1];
   const bf16* in2 = c.in[2];
@@ -688,38 +997,79 @@ __device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, S
   const int krows = packed_rows(c);
   const int nchunks = krows / KC;
   const int ksteps = (krows + BKH - 1) / BKH;
+  const uint32_t b_bytes = pl.block_n * BKH * 2;
+  const int y = at.row % H, b = at.row / H;
 
-  // The loaders: 16-byte column l_c of the stage (chunk l_c / 2, its K
-  // entries a_f .. a_f + 7), rows l_r0 + kRowStep i.
+  if (pl.a_tma) {
+    // A stage ks is chunks 4 ks .. 4 ks + 3 of one (tap, part); one thread
+    // issues the stage's two loads and stands for the four warps' arrivals
+    if (pr.pending > 0) drain(sm, pr);
+    if (tid == 0) {
+      for (int kt = 0; kt < ksteps; ++kt) {
+        const int slot = pr.issue.stage;
+        mbar_wait(&sm.empty[slot], pr.issue.parity ^ 1);
+        const int ks = kt;  // the stage's place in K
+        const int tap = ks * (BKH / KC) / per_tap;
+        int w = ks * (BKH / KC) - tap * per_tap, p = 0;
+        if (w >= chunks0) {
+          w -= chunks0;
+          p = 1;
+          if (w >= chunks1) w -= chunks1, p = 2;
+        }
+        mbar_arrive_expect_tx(&sm.full[slot], b_bytes + BM * BKH * 2);
+        tma_load_2d(sm.B[slot], wmap, ks * BKH, at.n0, &sm.full[slot]);
+        tma_load_4d(sm.A[slot], amap + p, w * KC, at.x0 + tap % kx - kx / 2,
+                    y + tap / kx - ky / 2, b, &sm.full[slot]);
+        mbar_arrive_n(&sm.full[slot], kProducerWarps);
+        pr.issue.advance();
+        pr.publish.advance();
+      }
+    } else {
+      for (int kt = 0; kt < ksteps; ++kt) pr.issue.advance(), pr.publish.advance();
+    }
+    return;
+  }
+
+  // 16-byte column l_c of the stage (chunk l_c / 2, its K entries a_f ..
+  // a_f + 7), pixels x0 + l_r0 + kRowStep i of the row.
   const int l_c = tid & 7;
   const int l_r0 = tid >> 3;
   const int dst = chunk_at_h(l_r0, l_c);
-  const bf16* w_src = c.w + (long long)(n0 + l_r0) * krows + l_c * 8;
-  const long long w_row = (long long)kRowStep * krows;
   const int a_q = l_c >> 1;
   const int a_f = (l_c & 1) * 8;
+  // Each pixel's valid tap offsets: bit dx + kR of a_ok when its column +
+  // dx lies in the image, bit dy + kR + 8 when its row + dy does; none past
+  // the row's end.
   int a_m[kARows], a_ok[kARows];
 #pragma unroll
   for (int i = 0; i < kARows; ++i) {
-    a_m[i] = m0 + l_r0 + kRowStep * i;
-    const int x = a_m[i] % W, y = (a_m[i] / W) % H;
+    const int x = at.x0 + l_r0 + kRowStep * i;
+    a_m[i] = at.row * W + x;
     int ok = 0;
 #pragma unroll
     for (int d = -kR; d <= kR; ++d)
       ok |= (x + d >= 0 && x + d < W) << (d + kR) | (y + d >= 0 && y + d < H) << (d + kR + 8);
-    a_ok[i] = a_m[i] < M ? ok : 0;
+    a_ok[i] = x < W ? ok : 0;
   }
   auto inside = [&](int i, int dy, int dx) {
     return (a_ok[i] >> (dx + kR)) & (a_ok[i] >> (dy + kR + 8)) & 1;
   };
+  // This thread's next chunk q = (BKH / KC) kt + a_q: its tap (ty, tx) and
+  // its chunk w within the tap, walked forward without a division.
   int w_ty = 0, w_tx = 0, w_c = a_q;
   while (w_c >= per_tap) {
     w_c -= per_tap;
     if (++w_tx == kx) w_tx = 0, ++w_ty;
   }
-  auto load_stage = [&](int kt, int slot) {
+  for (int kt = 0; kt < ksteps; ++kt) {
+    const int slot = pr.issue.stage;
+    mbar_wait(&sm.empty[slot], pr.issue.parity ^ 1);
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.full[slot], b_bytes);
+      tma_load_2d(sm.B[slot], wmap, kt * BKH, at.n0, &sm.full[slot]);
+    }
     const int q = kt * (BKH / KC) + a_q;  // this thread's chunk
-    if (two) {  // K entries (tap, channel) = (k / 2, k % 2), 4-byte pixels
+    if (pl.copy[0] == 4) {  // the flow: K entries (tap, channel) = (k / 2, k % 2)
       const int t0 = (q * KC + a_f) / 2;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -734,7 +1084,7 @@ __device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, S
       }
     } else {
       const bf16* base = in0;
-      int cin = cin0, r = 0, dy = 0, dx = 0;
+      int cin = cin0, r = 0, dy = 0, dx = 0, width = pl.copy[0];
       bool ok = false;
       if (q < nchunks) {
         int w = w_c;
@@ -744,9 +1094,11 @@ __device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, S
             w -= chunks1;
             base = in2;
             cin = cin2;
+            width = pl.copy[2];
           } else {
             base = in1;
             cin = cin1;
+            width = pl.copy[1];
           }
         }
         r = w * KC + a_f;
@@ -760,15 +1112,14 @@ __device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, S
         }
       }
       // cin is a multiple of 4: a half copy is all real or all padding
-      const bool narrow = (cin & 7) != 0;
       const bool ok_hi = r + 4 < cin;
-      const bf16* at = base + (long long)(dy * W + dx) * cin + r;
+      const bf16* src0 = base + (long long)(dy * W + dx) * cin + r;
 #pragma unroll
       for (int i = 0; i < kARows; ++i) {
         const bool v = ok && inside(i, dy, dx);
-        const bf16* src = v ? at + (long long)a_m[i] * cin : base;
+        const bf16* src = v ? src0 + (long long)a_m[i] * cin : base;
         bf16* d = &sm.A[slot][dst + kRowDstH * i];
-        if (narrow) {
+        if (width == 8) {
           cp_async8_readonly(d, src, v);
           cp_async8_readonly(d + 4, v && ok_hi ? src + 4 : base, v && ok_hi);
         } else {
@@ -776,138 +1127,147 @@ __device__ void conv_tile(const ConvT<bf16>& c, int M, int H, int W, int tile, S
         }
       }
     }
-    const bool bv = kt * BKH + l_c * 8 < krows;  // krows is a multiple of 16
-    const bf16* w = bv ? w_src + kt * BKH : c.w;
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i) cp_async16(&sm.B[slot][dst + kRowDstH * i], w + w_row * i, bv);
-  };
-
-  float acc[kNt][4], part[kNt][4];
-#pragma unroll
-  for (int j = 0; j < kNt; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.f;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int wm = (tid >> 5) * 16;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ksteps) load_stage(s, s);
     cp_async_commit();
-  }
-  cp_async_wait<kStages - 2>();
-  fence_async_shared();
-  __syncthreads();
-  for (int kt = 0; kt < ksteps; ++kt) {
-    const int slot = kt % kStages;
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < BKH / 16; ++s) {  // k16 step s: 32 bytes into each row
-      wgmma_bf16(&part[0][0], gmma_desc(&sm.A[slot][16 * s]), gmma_desc(&sm.B[slot][16 * s]),
-                 s > 0);
-    }
-    wgmma_commit();
-    if (kt + 1 < ksteps) {
-      cp_async_wait<kStages - 3>();
-      fence_async_shared();
-    }
-    const int next = kt + kStages - 1;
-    if (next < ksteps) load_stage(next, next % kStages);
-    cp_async_commit();
-    wgmma_wait();
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  const int N = c.N;
-  const int half = N / 2;
-#pragma unroll
-  for (int j = 0; j < kNt; ++j) {
-    const int n = n0 + j * 8 + 2 * tq;
-    const float2 bias = __ldg(reinterpret_cast<const float2*>(c.bias + n));
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int m = m0 + wm + g + 8 * e;
-      if (m >= M) continue;
-      const float v0 = rbf(rbf(acc[j][2 * e]) + bias.x);
-      const float v1 = rbf(rbf(acc[j][2 * e + 1]) + bias.y);
-      if (c.epi == kBiasRelu) {
-        bf16* dst_p = c.out + (long long)m * c.ld_out + c.out_off + n;
-        if (n + 1 < N) {
-          put_bf2(dst_p, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-        } else {
-          const float o[2] = {fmaxf(v0, 0.f), fmaxf(v1, 0.f)};
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            if (n + t < N)
-              dst_p[t] = __float2bfloat16_rn(o[t]);
-            else if (c.flow != nullptr && n + t < N + 2)
-              dst_p[t] = act(c.flow + 2LL * m + (n + t - N));
-          }
-        }
-      } else if (c.epi == kGates) {
-        if (n < half) {  // z half (the tile lies wholly in one half)
-          put_bf2(c.out + (long long)m * half + n, sigmoidf_(v0), sigmoidf_(v1));
-        } else {  // r half: emit r * h
-          const long long at = (long long)m * half + (n - half);
-          const float2 hv = bf2_at(c.h + at);
-          put_bf2(c.out1 + at, rbf(sigmoidf_(v0)) * hv.x, rbf(sigmoidf_(v1)) * hv.y);
-        }
-      } else {  // kBlend
-        const long long at = (long long)m * N + n;
-        const float2 hv = bf2_at(c.h + at);
-        const float2 zv = bf2_at(c.z + at);
-        const float q0 = rbf(tanhf(v0)), q1 = rbf(tanhf(v1));
-        put_bf2(c.out + at, rbf(rbf(1.f - zv.x) * hv.x) + rbf(zv.x * q0),
-                rbf(rbf(1.f - zv.y) * hv.y) + rbf(zv.y * q1));
-      }
+    pr.issue.advance();
+    if (++pr.pending > kLag) {
+      cp_async_wait<kLag>();
+      publish(sm, pr);
     }
   }
 }
 
-// The N = 2 convolution of the bf16 form, one warp per pixel: each lane
-// dots four channels at a time (8 bytes of input, 16 bytes of the (taps *
-// cin, 2) bfloat16 weights) in f32; cin a multiple of 4.
-__device__ void conv_n2_pixels(const ConvT<bf16>& c, int M, int H, int W, int warp, int nwarps) {
-  const int lane = threadIdx.x & 31;
-  const int cin = c.cin[0];
-  const int kx = c.kx, ky = c.ky, taps = kx * ky;
-  for (int m = warp; m < M; m += nwarps) {
-    const int x = m % W;
-    const int y = (m / W) % H;
-    float a0 = 0.f, a1 = 0.f;
-    for (int tap = 0; tap < taps; ++tap) {
-      const int dy = tap / kx - ky / 2;
-      const int dx = tap % kx - kx / 2;
-      if (y + dy < 0 || y + dy >= H || x + dx < 0 || x + dx >= W) continue;
-      const bf16* src = c.in[0] + (long long)(m + dy * W + dx) * cin;
-      const bf16* wr = c.w + 2LL * tap * cin;
-      for (int ch = lane * 4; ch < cin; ch += 128) {
-        const float2 v01 = bf2_at(src + ch), v23 = bf2_at(src + ch + 2);
-        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wr + 2 * ch));
-        const float2 w0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.x));
-        const float2 w1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.y));
-        const float2 w2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.z));
-        const float2 w3 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.w));
-        a0 = fmaf(v01.x, w0.x, fmaf(v01.y, w1.x, fmaf(v23.x, w2.x, fmaf(v23.y, w3.x, a0))));
-        a1 = fmaf(v01.x, w0.y, fmaf(v01.y, w1.y, fmaf(v23.x, w2.y, fmaf(v23.y, w3.y, a1))));
-      }
-    }
+// Bars the consumer warpgroup `cons` (named barrier 1 + cons, its 128
+// threads).
+__device__ __forceinline__ void consumer_sync(int cons) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cons) : "memory");
+}
+
+// The epilogue of a consumer's columns n0 .. n0 + NC - 1 of the tile at
+// `at`, one instance for each epilogue EPI. The consumer first stages its
+// sums, each rounded to bfloat16, in shared memory (`st`), from the
+// accumulators' fragment layout (acc[4 j + 2 e + t]: row 16 w + g + 8 e,
+// column 8 j + 2 tq + t); then its threads walk the tile's (row, column
+// pair)s in order, a pair each, so that a warp's loads of h and z and its
+// stores take whole rows of 128 bytes, in a loop unrolled only twice: each
+// phase runs its epilogue once a tile, with its code fetched cold, and an
+// epilogue unrolled over every output in the accumulators' layout took
+// 13,000-24,000 cycles a tile (scripts/conv_tile_bench.py bf16: variant
+// trace; epi_unroll1 and epi_unroll4 time the loop's unrolling).
+template <int NC, int EPI>
+__device__ __forceinline__ void epilogue(const ConvT<bf16>& c, const float* acc, uint32_t* st,
+                                         TilePos at, int n0, int W, int cons, int ctid) {
+  constexpr int kPairs = NC / 2;
+  const int g = (ctid & 31) >> 2;
+  const int tq = ctid & 3;
+  const int wm = (ctid >> 5) * 16;
+  consumer_sync(cons);  // the last tile's epilogue has read the stage
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      a0 += __shfl_xor_sync(0xffffffffu, a0, s);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, s);
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+      st[(wm + g + 8 * e) * kEpiLd + 4 * j + tq] = *reinterpret_cast<const uint32_t*>(&v);
     }
-    if (lane == 0) {
-      c.out[2LL * m] = __float2bfloat16_rn(rbf(a0) + __ldg(c.bias));
-      c.out[2LL * m + 1] = __float2bfloat16_rn(rbf(a1) + __ldg(c.bias + 1));
+  consumer_sync(cons);
+  const int N = c.N;
+  const int half = N / 2;
+  // a thread's column pair is the same on every row when kPairs divides 128
+  constexpr bool kFixedPair = 128 % kPairs == 0;
+  const float2 bias0 = __ldg(reinterpret_cast<const float2*>(c.bias + n0 + 2 * (ctid % kPairs)));
+#pragma unroll 2
+  for (int idx = ctid; idx < BM * kPairs; idx += 128) {
+    const int r = idx / kPairs;
+    const int cp = idx - r * kPairs;
+    const int x = at.x0 + r;
+    if (x >= W) continue;
+    const long long m = (long long)at.row * W + x;
+    const int n = n0 + 2 * cp;
+    const uint32_t word = st[r * kEpiLd + cp];
+    const float2 sum = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+    const float2 bias =
+        kFixedPair ? bias0 : __ldg(reinterpret_cast<const float2*>(c.bias + n));
+    const float v0 = rbf(sum.x + bias.x);
+    const float v1 = rbf(sum.y + bias.y);
+    if (EPI == kBiasRelu) {
+      bf16* dst_p = c.out + m * c.ld_out + c.out_off + n;
+      if (n + 1 < N) {
+        put_bf2(dst_p, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+      } else {
+        const float o[2] = {fmaxf(v0, 0.f), fmaxf(v1, 0.f)};
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (n + t < N)
+            dst_p[t] = __float2bfloat16_rn(o[t]);
+          else if (c.flow != nullptr && n + t < N + 2)
+            dst_p[t] = act(c.flow + 2 * m + (n + t - N));
+        }
+      }
+    } else if (EPI == kBias) {
+      if (n + 1 < N) {
+        put_bf2(c.out + m * c.ld_out + n, v0, v1);
+      } else if (n < N) {
+        c.out[m * c.ld_out + n] = __float2bfloat16_rn(v0);
+      }
+    } else if (EPI == kGates) {
+      if (n < half) {  // z
+        put_bf2(c.out + m * half + n, sigmoidf_(v0), sigmoidf_(v1));
+      } else {  // r: emit r * h
+        const long long at_h = m * half + (n - half);
+        const float2 hv = bf2_at(c.h + at_h);
+        put_bf2(c.out1 + at_h, rbf(sigmoidf_(v0)) * hv.x, rbf(sigmoidf_(v1)) * hv.y);
+      }
+    } else {  // kBlend
+      const long long at_h = m * N + n;
+      const float2 hv = bf2_at(c.h + at_h);
+      const float2 zv = bf2_at(c.z + at_h);
+      const float q0 = rbf(tanhf(v0)), q1 = rbf(tanhf(v1));
+      put_bf2(c.out + at_h, rbf(rbf(1.f - zv.x) * hv.x) + rbf(zv.x * q0),
+              rbf(rbf(1.f - zv.y) * hv.y) + rbf(zv.y * q1));
     }
+  }
+}
+
+// A consumer's part of tile `tile` of conv `c`: the 64 x NC products of its
+// columns over every stage, then the epilogue. Consumer warp w's thread
+// (g, tq) holds in acc[4 j + 2 e + t] the row segment's pixel 16 w + g + 8
+// e, column 8 j + 2 tq + t of the consumer's columns.
+template <int NC>
+__device__ void consume_tile(const ConvT<bf16>& c, int block_n, int M, int W, int xtiles,
+                             int tile, SmemH& sm, Ring& ring) {
+  const int cons = threadIdx.x >> 7;
+  const int ctid = threadIdx.x & 127;
+  const TilePos at = tile_pos(tile, block_n, M, W, xtiles);
+  const int n0 = at.n0 + cons * NC;
+  const int ksteps = (packed_rows(c) + BKH - 1) / BKH;
+  const int lane = ctid & 31;
+  float acc[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int kt = 0; kt < ksteps; ++kt) {
+    const int slot = ring.stage;
+    mbar_wait(&sm.full[slot], ring.parity);
+    wgmma_fence();
+    const bf16* a = sm.A[slot];
+    const bf16* b = sm.B[slot] + cons * NC * BKH;
+#pragma unroll
+    for (int s = 0; s < BKH / 16; ++s)  // k16 step s: 32 bytes into each row
+      wgmma_bf16<NC>(acc, gmma_desc(a + 16 * s), gmma_desc(b + 16 * s), kt > 0 || s > 0);
+    wgmma_commit();
+    wgmma_wait_n<1>();  // the stage before is multiplied: free it
+    if (prev >= 0 && lane == 0) mbar_arrive(&sm.empty[prev]);
+    prev = slot;
+    ring.advance();
+  }
+  wgmma_wait_n<0>();
+  if (prev >= 0 && lane == 0) mbar_arrive(&sm.empty[prev]);
+
+  uint32_t* st = sm.epi[cons];
+  switch (c.epi) {
+    case kBiasRelu: epilogue<NC, kBiasRelu>(c, acc, st, at, n0, W, cons, ctid); break;
+    case kBias: epilogue<NC, kBias>(c, acc, st, at, n0, W, cons, ctid); break;
+    case kGates: epilogue<NC, kGates>(c, acc, st, at, n0, W, cons, ctid); break;
+    default: epilogue<NC, kBlend>(c, acc, st, at, n0, W, cons, ctid); break;
   }
 }
 
@@ -942,6 +1302,53 @@ __device__ __forceinline__ void run_program(const ProgramT<T>& p) {
   for (int i = 0; i < p.nphases; ++i) {
     if (i > 0) cooperative_groups::this_grid().sync();
     run_phase(p.phase[i], p.M, p.H, p.W, sm);
+  }
+}
+
+// The body of a bf16 program kernel (kThreadsH threads; launch it through
+// launch_program only): the ring's barriers, then each phase's tiles, the
+// producer warpgroup and the consumers walking the same tiles in the same
+// order; a grid barrier between two phases.
+__device__ __forceinline__ void run_program_h(const ProgramH& p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  SmemH& sm =
+      *reinterpret_cast<SmemH*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesH; ++s) {
+      mbar_init(&sm.full[s], kFullCount);
+      mbar_init(&sm.empty[s], kEmptyCount);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bool producer = threadIdx.x >= kProducer;
+  ProducerRing pr;
+  Ring ring;
+  for (int i = 0; i < p.nphases; ++i) {
+    if (i > 0) cooperative_groups::this_grid().sync();
+    const PhaseT<bf16>& ph = p.phase[i];
+    int total = 0;
+    for (int j = 0; j < ph.nconv; ++j)
+      total += tiles_h(ph.conv[j], p.plan[i][j], p.M, p.W, p.xtiles);
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      int local = t, j = 0;
+      while (local >= tiles_h(ph.conv[j], p.plan[i][j], p.M, p.W, p.xtiles))
+        local -= tiles_h(ph.conv[j], p.plan[i][j], p.M, p.W, p.xtiles), ++j;
+      const ConvT<bf16>& c = ph.conv[j];
+      const ConvPlan& pl = p.plan[i][j];
+      if (producer) {
+        produce_tile(c, pl, &p.wmap[i][j], p.amap[i][j], p.M, p.H, p.W, p.xtiles, local, sm,
+                     pr);
+      } else {
+        switch (pl.block_n / kConsumers) {
+          case 128: consume_tile<128>(c, pl.block_n, p.M, p.W, p.xtiles, local, sm, ring); break;
+          case 96: consume_tile<96>(c, pl.block_n, p.M, p.W, p.xtiles, local, sm, ring); break;
+          case 64: consume_tile<64>(c, pl.block_n, p.M, p.W, p.xtiles, local, sm, ring); break;
+          default: consume_tile<32>(c, pl.block_n, p.M, p.W, p.xtiles, local, sm, ring); break;
+        }
+      }
+    }
+    if (producer) drain(sm, pr);
   }
 }
 
@@ -1118,6 +1525,143 @@ inline cudaError_t launch_program(Kernel kernel, const ProgramT<T>& p, cudaStrea
                                     dim3(kThreads), args, bytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The bf16 program of `p` with the plan `plan` (kPlanInts ints for each of
+// the kMaxConvs conv slots of each phase: block_n, a_tma, then the copy
+// width of each part, 0 in an empty slot or part; ops/conv_tile.py), a TMA
+// descriptor of each tiled conv's weights (ldw x packed_rows bfloat16) and,
+// where a_tma, of each part (seen as (C, W, H, B); box 64 channels x 64
+// pixels), every tensor 16-byte aligned. The plan must be the one the
+// kernel takes: block_n a multiple of 64 up to kMaxBlockN dividing ldw (the
+// N = 2 conv is kBias, on the tile), a_tma 1 exactly when every part's channels are a
+// multiple of 64, each part's width 16 where its channels are a multiple of
+// 8, 8 where they are a multiple of 4, 4 for a 2-channel part. Returns
+// cudaErrorInvalidValue otherwise.
+inline cudaError_t make_program_h(const ProgramT<bf16>& p, const int* plan, int plan_len,
+                                  ProgramH& out) {
+  using Encode = decltype(&cuTensorMapEncodeTiled);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  if (plan == nullptr || plan_len != p.nphases * kMaxConvs * kPlanInts) return cudaErrorInvalidValue;
+  out.nphases = p.nphases;
+  out.M = p.M;
+  out.H = p.H;
+  out.W = p.W;
+  out.xtiles = (p.W + BM - 1) / BM;
+  const cuuint64_t batch = (cuuint64_t)p.M / ((cuuint64_t)p.H * p.W);
+  for (int i = 0; i < p.nphases; ++i) {
+    out.phase[i] = p.phase[i];
+    for (int j = 0; j < kMaxConvs; ++j) {
+      const int* q = plan + (i * kMaxConvs + j) * kPlanInts;
+      ConvPlan& pl = out.plan[i][j];
+      pl.block_n = q[0];
+      pl.a_tma = q[1];
+      for (int k = 0; k < kMaxParts; ++k) pl.copy[k] = q[2 + k];
+      if (j >= p.phase[i].nconv) {
+        for (int k = 0; k < kPlanInts; ++k)
+          if (q[k] != 0) return cudaErrorInvalidValue;
+        continue;
+      }
+      const ConvT<bf16>& c = p.phase[i].conv[j];
+      for (int k = 0; k < kMaxParts; ++k) {
+        const int cin = c.cin[k];
+        const int want = k >= c.nparts ? 0 : cin == 2 && c.nparts == 1 ? 4 : cin % 8 == 0 ? 16 : 8;
+        if (pl.copy[k] != want) return cudaErrorInvalidValue;
+      }
+      bool tma = !two_channel(c);
+      for (int k = 0; k < c.nparts; ++k) tma = tma && c.cin[k] % 64 == 0;
+      if (c.epi == kBiasWarp || pl.a_tma != (int)tma) return cudaErrorInvalidValue;
+      if (pl.block_n <= 0 || pl.block_n % BN != 0 || pl.block_n > kMaxBlockN ||
+          c.ldw % pl.block_n != 0) {
+        return cudaErrorInvalidValue;
+      }
+      const cuuint64_t dims[2] = {(cuuint64_t)packed_rows(c), (cuuint64_t)c.ldw};
+      const cuuint64_t strides[1] = {(cuuint64_t)packed_rows(c) * sizeof(bf16)};
+      const cuuint32_t box[2] = {(cuuint32_t)BKH, (cuuint32_t)pl.block_n};
+      const cuuint32_t steps[2] = {1, 1};
+      const CUresult r = encode(&out.wmap[i][j], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                const_cast<bf16*>(c.w), dims, strides, box, steps,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+      for (int k = 0; tma && k < c.nparts; ++k) {
+        const cuuint64_t cin = c.cin[k];
+        const cuuint64_t adims[4] = {cin, (cuuint64_t)p.W, (cuuint64_t)p.H, batch};
+        const cuuint64_t astrides[3] = {cin * sizeof(bf16), cin * p.W * sizeof(bf16),
+                                        cin * p.W * p.H * sizeof(bf16)};
+        const cuuint32_t abox[4] = {(cuuint32_t)BKH, (cuuint32_t)BM, 1, 1};
+        const cuuint32_t asteps[4] = {1, 1, 1, 1};
+        const CUresult ra = encode(&out.amap[i][j][k], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                   const_cast<bf16*>(c.in[k]), adims, astrides, abox, asteps,
+                                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        if (ra != CUDA_SUCCESS) return cudaErrorInvalidValue;
+      }
+    }
+  }
+  return cudaSuccess;
+}
+
+// Launch `kernel` (a __global__ wrapper of run_program_h with
+// __launch_bounds__(kThreadsH, 1)) over the whole card as a cooperative grid
+// on `stream`: the bf16 program of `p` and `plan` (make_program_h), with
+// kSmemBytesH of dynamic shared memory a block and as many blocks as the
+// occupancy calculator fits (one an SM) or the busiest phase can use.
+// Returns a cudaError_t, as launch_program.
+template <typename Kernel>
+inline cudaError_t launch_program(Kernel kernel, const ProgramT<bf16>& p, const int* plan,
+                                  int plan_len, cudaStream_t stream) {
+  ProgramH h;
+  cudaError_t err = make_program_h(p, plan, plan_len, h);
+  if (err != cudaSuccess) return err;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytesH);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsH, kSmemBytesH);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  int work = 1;  // blocks the busiest phase can use
+  for (int i = 0; i < h.nphases; ++i) {
+    int blocks = 0;
+    for (int j = 0; j < h.phase[i].nconv; ++j) {
+      const ConvT<bf16>& c = h.phase[i].conv[j];
+      if (c.ky / 2 > kR || c.kx / 2 > kR) return cudaErrorInvalidValue;
+      blocks += tiles_h(c, h.plan[i][j], h.M, h.W, h.xtiles);
+    }
+    work = blocks > work ? blocks : work;
+  }
+  const int grid = per_sm * sms < work ? per_sm * sms : work;
+  void* args[] = {&h};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                    dim3(kThreadsH), args, kSmemBytesH, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The float32 form's launch, beside the bf16 one's: the plan is the bf16
+// tile's and is not read.
+template <typename Kernel>
+inline cudaError_t launch_program(Kernel kernel, const ProgramT<float>& p, const int*, int,
+                                  cudaStream_t stream) {
+  return launch_program(kernel, p, stream);
 }
 
 // Checks shared by the entry points: sizes positive and M addressable.

@@ -37,9 +37,9 @@ __global__ void __launch_bounds__(kThreads, 2) motion_fwd_kernel(const __grid_co
   run_program(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    motion_fwd_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
-  run_program(p);
+__global__ void __launch_bounds__(kThreadsH, 1)
+    motion_fwd_bf16_kernel(const __grid_constant__ ProgramH p) {
+  run_program_h(p);
 }
 
 // The encoder's program in T (float or bf16), launched on `kernel`.
@@ -48,7 +48,7 @@ int motion_fwd(Kernel kernel, const void* corr, const void* flow, const void* wc
                const void* bc1, const void* wc2, const void* bc2, const void* wf1,
                const void* bf1, const void* wf2, const void* bf2, const void* wo, const void* bo,
                void* scratch, void* out, int batch, int height, int width, int corr_channels,
-               void* stream) {
+               const int* plan, int plan_len, void* stream) {
   if (corr_channels <= 0 || corr_channels % 4 != 0 || !valid_geometry(batch, height, width)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -64,7 +64,7 @@ int motion_fwd(Kernel kernel, const void* corr, const void* flow, const void* wc
                              static_cast<const T*>(wo),  static_cast<const float*>(bo)};
   add_motion_phases(p, static_cast<const T*>(corr), corr_channels, static_cast<const T*>(flow),
                     mw, static_cast<T*>(scratch), static_cast<T*>(out));
-  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
+  return (int)launch_program(kernel, p, plan, plan_len, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -82,20 +82,25 @@ extern "C" int raft_motion_fwd(const void* corr, const void* flow, const void* w
                                void* stream) {
   return motion_fwd<float>(motion_fwd_kernel, corr, flow, wc1, bc1, wc2, bc2, wf1, bf1, wf2,
                            bf2, wo, bo, scratch, out, batch, height, width, corr_channels,
-                           stream);
+                           nullptr, 0, stream);
 }
 
 // The bf16 form: the arguments of raft_motion_fwd with corr, flow, the
 // weight matrices, the scratch (B*H*W*640 bfloat16s) and out in bfloat16,
-// packed by motion_cuda.pack_weights_bf16 (one matrix each, no lo part) and
-// the biases float32 holding bfloat16 values.
+// packed by motion_cuda.pack_weights_bf16 (one matrix each, no lo part),
+// the biases float32 holding bfloat16 values, and the tile plan of
+// ops/conv_tile.py (`plan_len` ints). It runs the same three phases on the
+// bf16 form's warp-specialised tile (conv_phase.cuh): convc1's lookup and
+// convf1's flow gathered by the producer's cp.async, the later convs' parts
+// by TMA.
 extern "C" int raft_motion_fwd_bf16(const void* corr, const void* flow, const void* wc1,
                                     const void* bc1, const void* wc2, const void* bc2,
                                     const void* wf1, const void* bf1, const void* wf2,
                                     const void* bf2, const void* wo, const void* bo,
                                     void* scratch, void* out, int batch, int height, int width,
-                                    int corr_channels, void* stream) {
+                                    int corr_channels, const int* plan, int plan_len,
+                                    void* stream) {
   return motion_fwd<bf16>(motion_fwd_bf16_kernel, corr, flow, wc1, bc1, wc2, bc2, wf1, bf1,
                           wf2, bf2, wo, bo, scratch, out, batch, height, width, corr_channels,
-                          stream);
+                          plan, plan_len, stream);
 }

@@ -33,7 +33,9 @@
 //
 // The bf16 form (raft_sepconv_gru_bf16) replaces the same TPU kernel at the
 // compute dtype bfloat16 (sepconv_gru(dtype=bfloat16), :602): the same four
-// phases (add_gru_phases<bf16>) on the bf16 conv tile (conv_phase.cuh),
+// phases (add_gru_phases<bf16>) on the bf16 form's warp-specialised tile
+// (conv_phase.cuh; 110 tiles of 64 pixels x the conv's whole N a phase at
+// Sintel size, each part of [h | x] read by TMA at each tap's shift),
 // bfloat16 h, x parts, weights, scratch (z, r*h, the half-way state) and
 // h', each conv's f32 sum rounded to bfloat16 before its bfloat16 bias and
 // the gates, the candidate and the blend rounded where the TPU kernel
@@ -51,9 +53,9 @@ __global__ void __launch_bounds__(kThreads, 2) sepconv_gru_kernel(const __grid_c
   run_program(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    sepconv_gru_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
-  run_program(p);
+__global__ void __launch_bounds__(kThreadsH, 1)
+    sepconv_gru_bf16_kernel(const __grid_constant__ ProgramH p) {
+  run_program_h(p);
 }
 
 // The cell's program in T (float or bf16), launched on `kernel`.
@@ -62,7 +64,8 @@ int sepconv_gru(Kernel kernel, const void* h, const void* x0, const void* x1, co
                 const void* b_zr1, const void* w_q1, const void* b_q1, const void* w_zr2,
                 const void* b_zr2, const void* w_q2, const void* b_q2, void* h1, void* z,
                 void* rh, void* out, int batch, int height, int width, int channels,
-                int x0_channels, int x1_channels, void* stream) {
+                int x0_channels, int x1_channels, const int* plan, int plan_len,
+                void* stream) {
   const bool x1_ok = x1_channels == 0 ? x1 == nullptr
                                       : x1 != nullptr && x1_channels > 0 && x1_channels % KC == 0;
   if (channels <= 0 || channels % BN != 0 || x0_channels <= 0 || x0_channels % KC != 0 ||
@@ -83,7 +86,7 @@ int sepconv_gru(Kernel kernel, const void* h, const void* x0, const void* x1, co
   add_gru_phases(p, static_cast<const T*>(h), channels, xs, cxs, x1 ? 2 : 1, gw,
                  static_cast<T*>(z), static_cast<T*>(rh), static_cast<T*>(h1),
                  static_cast<T*>(out));
-  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
+  return (int)launch_program(kernel, p, plan, plan_len, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -103,21 +106,22 @@ extern "C" int raft_sepconv_gru(const void* h, const void* x0, const void* x1,
                                 int x0_channels, int x1_channels, void* stream) {
   return sepconv_gru<float>(sepconv_gru_kernel, h, x0, x1, w_zr1, b_zr1, w_q1, b_q1, w_zr2,
                             b_zr2, w_q2, b_q2, h1, z, rh, out, batch, height, width, channels,
-                            x0_channels, x1_channels, stream);
+                            x0_channels, x1_channels, nullptr, 0, stream);
 }
 
 // The bf16 form: the arguments of raft_sepconv_gru with h, the x parts, the
 // weight matrices, the scratch h1, z, rh and out in bfloat16, packed by
-// gru_cuda.pack_weights_bf16 (one matrix each, no lo part) and the biases
-// float32 holding bfloat16 values.
+// gru_cuda.pack_weights_bf16 (one matrix each, no lo part), the biases
+// float32 holding bfloat16 values, and the tile plan of ops/conv_tile.py
+// (`plan_len` ints).
 extern "C" int raft_sepconv_gru_bf16(const void* h, const void* x0, const void* x1,
                                      const void* w_zr1, const void* b_zr1, const void* w_q1,
                                      const void* b_q1, const void* w_zr2, const void* b_zr2,
                                      const void* w_q2, const void* b_q2, void* h1, void* z,
                                      void* rh, void* out, int batch, int height, int width,
                                      int channels, int x0_channels, int x1_channels,
-                                     void* stream) {
+                                     const int* plan, int plan_len, void* stream) {
   return sepconv_gru<bf16>(sepconv_gru_bf16_kernel, h, x0, x1, w_zr1, b_zr1, w_q1, b_q1, w_zr2,
                            b_zr2, w_q2, b_q2, h1, z, rh, out, batch, height, width, channels,
-                           x0_channels, x1_channels, stream);
+                           x0_channels, x1_channels, plan, plan_len, stream);
 }

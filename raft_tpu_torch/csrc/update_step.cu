@@ -34,12 +34,18 @@
 //
 // The bf16 form (raft_update_step_bf16) replaces the same TPU kernel at the
 // compute dtype bfloat16 (fused_step(dtype=bfloat16), :503): the same
-// program on the bf16 conv tile (conv_phase.cuh), bfloat16 activations,
-// weights and scratch, each conv's sum rounded to bfloat16 before its
-// bfloat16 bias and the gates and blends rounded where the TPU kernel rounds;
-// h2 and delta come back bfloat16. Bound on an H100 SXM at the Sintel shape:
-// 37.68 GFLOP ('mgf') at 989 TFLOP/s is 0.038 ms, against about 10 MB of
-// compulsory bfloat16 traffic (3 us): bound by tensor-core operations.
+// program on the bf16 form's warp-specialised tile (conv_phase.cuh, the
+// geometry from ops/conv_tile.py): bfloat16 activations, weights and
+// scratch, each conv's sum rounded to bfloat16 before its bfloat16 bias and
+// the gates and blends rounded where the TPU kernel rounds; h2 and delta
+// come back bfloat16. Its flow-head N = 2 conv runs on the tile too (its
+// columns padded to 64: a sum of exact bfloat16 products in f32, as the
+// warp-per-pixel path of the float32 form). A block, one an SM, computes
+// 64 pixels of a row x the conv's whole N (at most 256); the phases have
+// 220, 220, 110, 110, 110, 110, 110, 110 and 110 tiles at Sintel size on
+// 132 blocks. Bound on an H100 SXM at the Sintel shape: 37.68 GFLOP
+// ('mgf') at 989 TFLOP/s is 0.038 ms, against about 10 MB of compulsory
+// bfloat16 traffic (3 us): bound by tensor-core operations.
 
 #include "conv_phase.cuh"
 
@@ -53,9 +59,9 @@ __global__ void __launch_bounds__(kThreads, 2) update_step_kernel(const __grid_c
   run_program(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    update_step_bf16_kernel(const __grid_constant__ ProgramT<bf16> p) {
-  run_program(p);
+__global__ void __launch_bounds__(kThreadsH, 1)
+    update_step_bf16_kernel(const __grid_constant__ ProgramH p) {
+  run_program_h(p);
 }
 
 // The program of one iteration in T (float or bf16), launched on `kernel`.
@@ -68,7 +74,8 @@ int update_step(Kernel kernel, const void* net, const void* inp, const void* cor
                 const void* b_zr2, const void* w_q2, const void* b_q2, const void* wfh1,
                 const void* bfh1, const void* wfh2, const void* bfh2, void* scratch, void* h2,
                 void* delta, int batch, int height, int width, int channels, int inp_channels,
-                int corr_channels, int flow_head, void* stream) {
+                int corr_channels, int flow_head, const int* plan, int plan_len,
+                void* stream) {
   if (channels <= 0 || channels % BN != 0 || inp_channels <= 0 || inp_channels % KC != 0 ||
       corr_channels <= 0 || corr_channels % 4 != 0 || (flow_head && delta == nullptr) ||
       !valid_geometry(batch, height, width)) {
@@ -106,12 +113,15 @@ int update_step(Kernel kernel, const void* net, const void* inp, const void* cor
                              kFlowHead, kBiasRelu, fh, kFlowHead, 0);
     add_part(fh1, static_cast<const T*>(out_h), channels);
     add_phase(p, fh1);
+    // the float32 form runs the N = 2 conv one warp a pixel, the bf16 form
+    // on its tile (columns padded to 64)
+    const int fh2_epi = sizeof(T) == sizeof(float) ? kBiasWarp : kBias;
     ConvT<T> fh2 = make_conv(3, 3, static_cast<const T*>(wfh2), static_cast<const float*>(bfh2),
-                             2, kBiasWarp, static_cast<T*>(delta), 2, 0);
+                             2, fh2_epi, static_cast<T*>(delta), 2, 0);
     add_part(fh2, static_cast<const T*>(fh), kFlowHead);
     add_phase(p, fh2);
   }
-  return (int)launch_program(kernel, p, static_cast<cudaStream_t>(stream));
+  return (int)launch_program(kernel, p, plan, plan_len, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -140,14 +150,16 @@ extern "C" int raft_update_step(const void* net, const void* inp, const void* co
   return update_step<float>(update_step_kernel, net, inp, corr, flow, wc1, bc1, wc2, bc2, wf1,
                             bf1, wf2, bf2, wo, bo, w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2, w_q2,
                             b_q2, wfh1, bfh1, wfh2, bfh2, scratch, h2, delta, batch, height,
-                            width, channels, inp_channels, corr_channels, flow_head, stream);
+                            width, channels, inp_channels, corr_channels, flow_head, nullptr,
+                            0, stream);
 }
 
 // The bf16 form: the arguments of raft_update_step with the activations,
 // the weight matrices, the scratch (B*H*W*(640 + 128 + 3C) bfloat16s), h2
 // and delta in bfloat16, packed by step_cuda.pack_bf16 (one matrix, no lo
-// part; the flow head's N = 2 one (9*256, 2) bfloat16) and the biases
-// float32 holding bfloat16 values.
+// part; the flow head's N = 2 one (64, 9*256), its columns padded as the
+// others') and the biases float32 holding bfloat16 values; the tile plan
+// of ops/conv_tile.py (`plan_len` ints).
 extern "C" int raft_update_step_bf16(const void* net, const void* inp, const void* corr,
                                      const void* flow, const void* wc1, const void* bc1,
                                      const void* wc2, const void* bc2, const void* wf1,
@@ -159,9 +171,11 @@ extern "C" int raft_update_step_bf16(const void* net, const void* inp, const voi
                                      const void* wfh2, const void* bfh2, void* scratch,
                                      void* h2, void* delta, int batch, int height, int width,
                                      int channels, int inp_channels, int corr_channels,
-                                     int flow_head, void* stream) {
+                                     int flow_head, const int* plan, int plan_len,
+                                     void* stream) {
   return update_step<bf16>(update_step_bf16_kernel, net, inp, corr, flow, wc1, bc1, wc2, bc2,
                            wf1, bf1, wf2, bf2, wo, bo, w_zr1, b_zr1, w_q1, b_q1, w_zr2, b_zr2,
                            w_q2, b_q2, wfh1, bfh1, wfh2, bfh2, scratch, h2, delta, batch, height,
-                           width, channels, inp_channels, corr_channels, flow_head, stream);
+                           width, channels, inp_channels, corr_channels, flow_head, plan,
+                           plan_len, stream);
 }

@@ -20,7 +20,8 @@ The tests replay the kernel's arithmetic on these matrices
 
 The tile's bf16 form (the mixed-precision policy) takes the same matrix
 once, rounded to bfloat16 (``pack_conv_bf16``), with the bias as float32
-values rounded to bfloat16. ``conv2d`` is a convolution as the kernels
+values rounded to bfloat16; its columns are padded to a multiple of the
+bf16 tile's block width (``bf16_block_n``, ``ops/conv_tile.py``). ``conv2d`` is a convolution as the kernels
 compute it, in float32 or in bfloat16: the plain versions use it.
 """
 
@@ -32,10 +33,23 @@ import torch.nn.functional as F
 KC = 16     # conv_phase.cuh: K rows of a chunk (a part pads to a multiple)
 BK = 32     # conv_phase.cuh: K rows of one pipeline stage (two chunks)
 BN = 64     # conv_phase.cuh: output channels per tile
+BF16_MAX_BLOCK_N = 256   # conv_phase.cuh: the bf16 tile's widest block
 
 
 def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def bf16_block_n(n: int) -> int:
+    """The output channels of one block of the bf16 tile for an N = ``n``
+    convolution: the whole of ``n`` rounded up to a multiple of ``BN``, or,
+    past ``BF16_MAX_BLOCK_N``, the widest of 256, 192, 128 and 64 that
+    divides that. The bf16 packs pad their columns to a multiple of it (the
+    same ``round_up(n, BN)`` columns as the float32 packs)."""
+    n64 = round_up(n, BN)
+    if n64 <= BF16_MAX_BLOCK_N:
+        return n64
+    return next(b for b in (256, 192, 128, 64) if n64 % b == 0)
 
 
 def packed_rows(cin: int, taps: int) -> int:
@@ -106,12 +120,11 @@ def pack_conv(weight: torch.Tensor, bias: torch.Tensor) -> tuple:
 
 def pack_conv_bf16(weight: torch.Tensor, bias: torch.Tensor) -> tuple:
     """``pack_conv``'s layout for the bf16 form: ``w`` is one bfloat16
-    ``(ldw, rows)`` matrix (no lo part), or ``(rows, 2)`` for an N = 2
-    convolution; ``b`` is float32 holding bfloat16 values."""
+    ``(ldw, rows)`` matrix (no lo part), an N = 2 convolution's too (the
+    bf16 tile runs it like the others, its columns padded to 64); ``b`` is
+    float32 holding bfloat16 values, padded likewise."""
     n = weight.shape[0]
     rows = _matrix(weight)
-    if n == 2:
-        return rows.to(torch.bfloat16).contiguous(), round_bf16(bias)
-    ldw = round_up(n, BN)
+    ldw = round_up(n, bf16_block_n(n))
     return (F.pad(rows, (0, ldw - n)).t().to(torch.bfloat16).contiguous(),
             round_bf16(F.pad(bias.detach(), (0, ldw - n))).contiguous())

@@ -39,6 +39,7 @@ import torch
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
 from raft_tpu_torch.ops.conv_pack import conv2d, round_bf16, split_tf32
+from raft_tpu_torch.ops.conv_tile import c_plan
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # cells computed by the CUDA kernel
@@ -128,6 +129,9 @@ def check_packed(packed, k: int, c: int, device, bf16: bool = False) -> None:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the bf16 form's: the tile plan (ops/conv_tile.py) before the stream
+_ARGTYPES_BF16 = _ARGTYPES[:-1] + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                   ctypes.c_void_p]
 
 
 def sepconv_gru_cuda(h: torch.Tensor, x, packed) -> torch.Tensor:
@@ -166,13 +170,15 @@ def sepconv_gru_cuda(h: torch.Tensor, x, packed) -> torch.Tensor:
     h1, z, rh = (torch.empty_like(h) for _ in range(3))
     x1, cx1 = (xs[1].data_ptr(), cxs[1]) if len(xs) == 2 else (None, 0)
     symbol = "raft_sepconv_gru_bf16" if bf16 else "raft_sepconv_gru"
+    plan = c_plan("gru", C, *cxs) if bf16 else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = build.bind("sepconv_gru", symbol, _ARGTYPES)(
+        err = build.bind("sepconv_gru", symbol,
+                         _ARGTYPES_BF16 if bf16 else _ARGTYPES)(
             h.data_ptr(), xs[0].data_ptr(), x1,
             *[t.data_ptr() for t in packed],
             h1.data_ptr(), z.data_ptr(), rh.data_ptr(), out.data_ptr(),
-            B, H, W, C, cxs[0], cx1, stream)
+            B, H, W, C, cxs[0], cx1, *plan, stream)
     if err:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
     if bf16:

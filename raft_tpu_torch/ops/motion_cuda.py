@@ -41,9 +41,10 @@ import torch.nn.functional as F
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.build import check_operand
-from raft_tpu_torch.ops.conv_pack import (BN, conv2d, pack_conv,
-                                          pack_conv_bf16, packed_rows,
-                                          round_up)
+from raft_tpu_torch.ops.conv_pack import (BN, bf16_block_n, conv2d,
+                                          pack_conv, pack_conv_bf16,
+                                          packed_rows, round_up)
+from raft_tpu_torch.ops.conv_tile import c_plan
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
@@ -95,7 +96,7 @@ def packed_shapes(cc: int, bf16: bool = False) -> list:
     cins = (cc, WIDTHS[0], 2, WIDTHS[2], WIDTHS[1] + WIDTHS[3])
     shapes = []
     for cin, k, n in zip(cins, KSIZES, WIDTHS):
-        ldw = round_up(n, BN)
+        ldw = round_up(n, bf16_block_n(n) if bf16 else BN)
         w = (ldw, packed_rows(cin, k * k))
         shapes += [w if bf16 else (2, *w), (ldw,)]
     return shapes
@@ -114,6 +115,9 @@ def check_packed(packed, cc: int, device, bf16: bool = False) -> None:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the bf16 form's: the tile plan (ops/conv_tile.py) before the stream
+_ARGTYPES_BF16 = _ARGTYPES[:-1] + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                   ctypes.c_void_p]
 
 
 def motion_encoder_cuda(flow: torch.Tensor, corr: torch.Tensor,
@@ -147,11 +151,13 @@ def motion_encoder_cuda(flow: torch.Tensor, corr: torch.Tensor,
     out = torch.empty(B, H, W, OUT_CHANNELS, device=dev, dtype=corr.dtype)
     scratch = torch.empty(B * H * W * SCRATCH, device=dev, dtype=corr.dtype)
     symbol = "raft_motion_fwd_bf16" if bf16 else "raft_motion_fwd"
+    plan = c_plan("motion", cc) if bf16 else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = build.bind("motion_fwd", symbol, _ARGTYPES)(
+        err = build.bind("motion_fwd", symbol,
+                         _ARGTYPES_BF16 if bf16 else _ARGTYPES)(
             corr.data_ptr(), flow.data_ptr(), *[t.data_ptr() for t in packed],
-            scratch.data_ptr(), out.data_ptr(), B, H, W, cc, stream)
+            scratch.data_ptr(), out.data_ptr(), B, H, W, cc, *plan, stream)
     if err:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
     if bf16:

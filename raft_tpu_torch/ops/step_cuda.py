@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from raft_tpu_torch.ops import build, gru_cuda, motion_cuda
 from raft_tpu_torch.ops.build import check_operand
 from raft_tpu_torch.ops.conv_pack import conv2d, pack_conv, pack_conv_bf16
+from raft_tpu_torch.ops.conv_tile import c_plan
 from raft_tpu_torch.ops.recompute import RecomputeFn, flatten, pairs
 
 launches = 0          # calls computed by the CUDA kernel
@@ -67,8 +68,9 @@ def pack_flow_head(convs) -> tuple:
 
 def pack_flow_head_bf16(convs) -> tuple:
     """``pack_flow_head``'s layout for the bf16 form: wfh1 one bfloat16
-    (256, 9C) matrix, wfh2 a bfloat16 (9*256, 2) one, the biases float32
-    holding bfloat16 values (``conv_pack.pack_conv_bf16``)."""
+    (256, 9C) matrix, wfh2 a bfloat16 (64, 9*256) one (its two columns
+    padded to the tile's 64), the biases float32 holding bfloat16 values
+    (``conv_pack.pack_conv_bf16``)."""
     return tuple(t for w, b in convs for t in pack_conv_bf16(w, b))
 
 
@@ -102,13 +104,17 @@ def fused_step_plain(net, inp, corr, flow, convs):
 
 
 _ARGTYPES = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# the bf16 form's: the tile plan (ops/conv_tile.py) before the stream
+_ARGTYPES_BF16 = _ARGTYPES[:-1] + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                   ctypes.c_void_p]
 
 
 def _check_head(head, C: int, dev, bf16: bool) -> None:
     shapes = [(2, FLOW_HEAD_HIDDEN, 9 * C), (FLOW_HEAD_HIDDEN,),
               (9 * FLOW_HEAD_HIDDEN, 2), (2,)]
     if bf16:
-        shapes[0] = shapes[0][1:]
+        shapes = [(FLOW_HEAD_HIDDEN, 9 * C), (FLOW_HEAD_HIDDEN,),
+                  (64, 9 * FLOW_HEAD_HIDDEN), (64,)]
     if len(head) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed flow-head "
                          f"tensors, got {len(head)}")
@@ -158,14 +164,16 @@ def fused_step_cuda(net, inp, corr, flow, packed):
                                                   dtype=net.dtype)
     head_ptrs = [None] * 4 if head is None else [t.data_ptr() for t in head]
     symbol = "raft_update_step_bf16" if bf16 else "raft_update_step"
+    plan = c_plan("step", C, ci, cc, head is not None) if bf16 else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = build.bind("update_step", symbol, _ARGTYPES)(
+        err = build.bind("update_step", symbol,
+                         _ARGTYPES_BF16 if bf16 else _ARGTYPES)(
             net.data_ptr(), inp.data_ptr(), corr.data_ptr(), flow.data_ptr(),
             *[t.data_ptr() for t in motion], *[t.data_ptr() for t in gru],
             *head_ptrs, scratch.data_ptr(), h2.data_ptr(),
             None if delta is None else delta.data_ptr(),
-            B, H, W, C, ci, cc, int(head is not None), stream)
+            B, H, W, C, ci, cc, int(head is not None), *plan, stream)
     if err:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
     if bf16:

@@ -637,13 +637,15 @@ def test_bf16_lookup_kernel_matches_plain_on_card(cuda, hw, maps, out,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", ["mg", "mgf"])
-@pytest.mark.parametrize("bhw", [(1, 55, 128), (2, 13, 17)])
+@pytest.mark.parametrize("bhw", [(1, 55, 128), (2, 13, 17), (8, 46, 62)])
 def test_bf16_step_kernel_matches_plain_on_card(cuda, bhw, depth,
                                                 monkeypatch):
     """The bf16 form of ``update_step`` through ``BasicUpdateBlock`` on
-    bfloat16 inputs against its plain version, at the Sintel feature shape
-    and a ragged B=2 one (M not a multiple of 64); bar 8 ``EPS`` of
-    max(1, max|plain|) for h2 and of max|plain| for delta."""
+    bfloat16 inputs against its plain version, at the Sintel feature shape,
+    a ragged B=2 one (M not a multiple of 64; W = 17, one 64-pixel row
+    segment of the bf16 tile with 47 pixels past W) and the chairs
+    training batch (B=8, 46x62); bar 8 ``EPS`` of max(1, max|plain|) for
+    h2 and of max|plain| for delta."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     rng = np.random.default_rng(9)
     b, h, w = bhw

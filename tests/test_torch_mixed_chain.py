@@ -499,14 +499,14 @@ def test_chain_train_steps_launch_with_fresh_bf16_packs(monkeypatch):
 
 # -- the bf16 forms on the card -----------------------------------------------
 
-def _card_inputs(device, h, w, seed):
+def _card_inputs(device, h, w, seed, b=1):
     """net, inp, corr (Cc 324) and flow of the Sintel distribution, in
-    bfloat16 on ``device``."""
+    bfloat16 on ``device``, a batch of ``b``."""
     rng = np.random.default_rng(seed)
-    acts = (np.tanh(rng.standard_normal((1, h, w, 128))),
-            np.maximum(rng.standard_normal((1, h, w, 128)), 0),
-            rng.standard_normal((1, h, w, 324)),
-            rng.uniform(-20, 20, (1, h, w, 2)))
+    acts = (np.tanh(rng.standard_normal((b, h, w, 128))),
+            np.maximum(rng.standard_normal((b, h, w, 128)), 0),
+            rng.standard_normal((b, h, w, 324)),
+            rng.uniform(-20, 20, (b, h, w, 2)))
     return [_t(a).to(device=device, dtype=BF16) for a in acts]
 
 
@@ -521,17 +521,30 @@ def _card_held(got, want, control):
     assert rel <= NORM_REL < ctrl, (rel, ctrl)
 
 
+# (height, width) at B=1, or (batch, height, width): the golden and Sintel
+# feature shapes, the chairs training batch, and a ragged one (W = 17: one
+# 64-pixel row segment of the bf16 tile, 47 of its pixels past W; M = 663
+# not a multiple of 64)
+CARD_SHAPES = [(24, 32), (55, 128), (8, 46, 62), (3, 13, 17)]
+
+
+def _bhw(hw):
+    return hw if len(hw) == 3 else (1, *hw)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(24, 32), (55, 128)])
+@pytest.mark.parametrize("hw", CARD_SHAPES)
 def test_bf16_motion_kernel_matches_plain_on_card(cuda, hw):
     """``motion_fwd``'s bf16 form against its plain version at the golden
-    and Sintel feature shapes: the features within 8 EPS of max(1,
-    max|plain|) and NORM_REL on the 2-norm, the float32 kernel on the same
-    values above NORM_REL; the flow channels bit for bit."""
+    and Sintel feature shapes, the chairs training batch and a ragged
+    shape: the features within 8 EPS of max(1, max|plain|) and NORM_REL on
+    the 2-norm, the float32 kernel on the same values above NORM_REL; the
+    flow channels bit for bit."""
     model = RAFT(RAFTConfig())
     model.load_state_dict(load_npz(WEIGHTS))
     enc = model.update_block.encoder.to(cuda)
-    _, _, cor, flow = _card_inputs(cuda, *hw, seed=1)
+    b, h, w = _bhw(hw)
+    _, _, cor, flow = _card_inputs(cuda, h, w, seed=1, b=b)
     with torch.inference_mode():
         before = motion_cuda.bf16_launches
         got = motion_cuda.motion_encoder_cuda(flow, cor,
@@ -546,15 +559,17 @@ def test_bf16_motion_kernel_matches_plain_on_card(cuda, hw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(24, 32), (55, 128)])
+@pytest.mark.parametrize("hw", CARD_SHAPES)
 @pytest.mark.parametrize("parts", [1, 2], ids=["x-whole", "x-parts"])
 def test_bf16_gru_kernel_matches_plain_on_card(cuda, hw, parts):
     """``sepconv_gru``'s bf16 form against its plain version, x whole and
-    as the chain's parts, with the bars of the motion test."""
+    as the chain's parts, at the motion test's shapes and with its
+    bars."""
     model = RAFT(RAFTConfig())
     model.load_state_dict(load_npz(WEIGHTS))
     block = model.update_block.to(cuda)
-    net, inp, cor, flow = _card_inputs(cuda, *hw, seed=2)
+    b, h, w = _bhw(hw)
+    net, inp, cor, flow = _card_inputs(cuda, h, w, seed=2, b=b)
     with torch.inference_mode():
         mot = motion_cuda.motion_encoder_plain(flow, cor,
                                                block.encoder.convs())
