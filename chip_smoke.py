@@ -88,10 +88,13 @@ pyramid stored in bfloat16) against the JAX package's own aggregate
 (``SMALL_MIXED_GT_CPU``), five Sintel pairs beside float32 RAFT-small's.
 RAFT-large training under the policy (phase ``mixed train``): the bf16
 corr backward against its plain version at the chairs (B=8) and Sintel
-shapes (C=256 r=4, C=128 r=3), coherent and incoherent flows, in its three
-operand combinations (bf16 maps with float32 or bf16 products, float32
-maps with bf16 products), bf16 and float32 cotangents, each path forced,
-and timed (row ``corr_bwd_bf16``); one train step through the kernels
+shapes (C=256 r=4, C=128 r=3), coherent and incoherent flows, and with
+rescale 0, in its three operand combinations (bf16 maps with float32 or
+bf16 products, float32 maps with bf16 products), bf16 and float32
+cotangents, each path forced, its boxes of one chunk, of more chunks than
+its ring and ragged ones counted, its SASS (bf16 MMAs only) and ptxas
+report (no spills) read, and timed beside the float32 form (row
+``corr_bwd_bf16``); one train step through the kernels
 against the plain route with ``mixed_precision=True`` and with
 ``corr_mxu_dtype="bfloat16"``; seven chairs-size steps through ``train()``
 under the policy on the float32 run's weights and batches (each step's
@@ -189,9 +192,11 @@ DEVICE = "cuda"               # the train helpers' device
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
-TF32X2_FLOPS = TF32_FLOPS / 2  # two TF32 passes (one operand exact in TF32)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12           # dense bfloat16 on the tensor cores
+# three bf16 passes: corr_bwd_bf16 at mxu "float32", the coefficient split
+# into three bfloat16 parts (the map exact in bfloat16)
+BF16X3_FLOPS = BF16_FLOPS / 3
 CONV_TILE_KERNELS = ("sepconv_gru", "motion_fwd", "update_step")
 # Kernels that multiply in 3xTF32 on the tensor cores: the conv tile's, and
 # the corr kernels on their shared path (csrc/corr_tile.cuh), whose warp
@@ -279,6 +284,17 @@ def tensor_core_tf32_ops(cuobjdump: str, library: str) -> dict:
 def tensor_core_bf16_ops(cuobjdump: str, library: str) -> dict:
     """The same for bfloat16 operands (the bf16 forms)."""
     return _tensor_core_ops(cuobjdump, library, "BF16")
+
+
+def ptxas_usage(library: str):
+    """Each kernel's registers and spill bytes (stores and loads) from the
+    ptxas report that ops/build.py keeps beside a built library."""
+    with open(library + ".log") as f:
+        log = f.read()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return regs, spills
 
 
 def widest_hgmma_n(ops: dict) -> int:
@@ -402,6 +418,46 @@ def in_range_neighbours(torch, pyramid, coords, radius, rescale=True):
         ny = ((ys >= 0) & (ys < f2.shape[1])).sum(-1)
         neighbours += int((nx * ny).sum())
     return neighbours
+
+
+# corr_bwd_bf16's box chunk in pixels (csrc/corr_tile_bf16.cuh, kChunk);
+# its ring holds two chunks
+BWD_BF16_CHUNK = 64
+
+
+def box_pixels(torch, pyramid, coords, radius, rescale=True):
+    """The pixels of every (tile, level) block's box, the corr kernels' rule
+    (csrc/corr_tile.cuh, load_tile): per level each query's (2r+2)^2
+    integer neighbours clipped to the level, none for a far or NaN centre;
+    a box bounds its 8 x 8 queries' neighbours, 0 pixels if it holds none.
+    Returns an int64 tensor (levels x tiles)."""
+    b, h, w = coords.shape[:3]
+    d, big = 2 * radius + 2, 1 << 30
+    ph, pw = -h % 8, -w % 8
+    sizes = []
+    for lvl, f2 in enumerate(pyramid):
+        h2, w2 = f2.shape[1:3]
+        f = torch.floor(coords / 2 ** lvl if rescale else coords)
+        near = (f.abs() < 1e8).all(-1)
+        first = torch.where(near[..., None], f, 0.0).long() - radius
+        lo = first.clamp(min=0)
+        hi = torch.minimum(first + d - 1,
+                           torch.tensor([w2 - 1, h2 - 1], device=f.device))
+        keep = (near & (lo <= hi).all(-1))[..., None]
+        lo = torch.where(keep, lo, big)
+        hi = torch.where(keep, hi, -big)
+
+        def tiled(x, pad, reduce):
+            x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph),
+                                        value=pad)
+            x = x.reshape(b, 2, (h + ph) // 8, 8, (w + pw) // 8, 8)
+            return reduce(reduce(x, 5), 3)
+
+        lo = tiled(lo, big, lambda x, dim: x.amin(dim))
+        hi = tiled(hi, -big, lambda x, dim: x.amax(dim))
+        extent = (hi - lo + 1).clamp(min=0)
+        sizes.append((extent[:, 0] * extent[:, 1]).reshape(-1))
+    return torch.stack(sizes)
 
 
 def corr_work(torch, f1, pyramid, coords, radius, rescale=True):
@@ -2845,17 +2901,18 @@ def mixed_small_phase(torch, pkg, padder, frames, counters, f32_times):
 #   version at the other mxu_dtype (what a kernel that left out, or added,
 #   the bfloat16 rounding of the maps and coefficients would read), must
 #   lie above the second bar: the bar tells the two apart.
-# Under mxu "float32" the kernel's two TF32 passes and the plain float32
-# sums differ by the TF32 split's 2^-22 and the order. Under "bfloat16" both
+# Under mxu "float32" the kernel's three bf16 passes (the coefficient split
+# into three bfloat16 parts, 24 significant bits) and the plain float32
+# sums differ by the order of the sums. Under "bfloat16" both
 # round the same float32 coefficients to bfloat16, folded in other orders:
 # a coefficient a float32 ulp from a bfloat16 rounding boundary can round
 # the other way (about one in 2^16), which moves the gradients it touches by
 # its bfloat16 ulp, as much as the control moves every gradient. So the
 # largest difference cannot tell the two apart there, and the 2-norm can:
 # a few flipped coefficients among millions barely move it. Read on an H100
-# over this phase's inputs: mxu "float32" 3.2e-6 largest, 1.5e-6 2-norm;
-# mxu "bfloat16" up to 1.1e-3 largest, 2.5e-5 2-norm; the controls' 2-norm
-# 1.7e-3 at least.
+# over this phase's inputs (csrc/corr_tile_bf16.cuh's three bf16 passes):
+# mxu "float32" 3.4e-6 largest, 1.5e-6 2-norm; mxu "bfloat16" up to 1.1e-3
+# largest, 5.7e-5 2-norm; the controls' 2-norm 1.66e-3 at least.
 CORR_BWD_BF16_BARS = {("bfloat16", "float32"): (1e-4, 1e-5),
                       ("bfloat16", "bfloat16"): (4e-3, 1e-4),
                       ("float32", "bfloat16"): (4e-3, 1e-4)}
@@ -2909,26 +2966,36 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                         err):
     """The bf16 corr backward against its plain version at the chairs train
     shape (B=8, 46x62, C=256, r=4) and the Sintel shape (B=1, 55x128, C=256
-    r=4, and C=128 r=3), on coherent and incoherent flows (CORR_FLOWS), for
-    each operand combination (BF16_BWD_COMBOS) with its training cotangent,
-    at the chairs shape also with the other; on coherent flows also with
-    each path forced; each against CORR_BWD_BF16_BARS with its control,
-    failing after every case is printed. Then each combination timed at the
-    default budget (ms, queued ms_q, the bound at 989 TFLOP/s for bf16
-    products and 247.5 for the two TF32 passes, the shared-path share), the
-    plain version too for the policy's combination. Updates ``err``; returns
-    {"<shape> <flow> <maps>/<mxu>": row}, "max_rel_err" and "readings"
+    r=4, and C=128 r=3), on coherent and incoherent flows (CORR_FLOWS), and
+    at both Sintel widths with rescale 0 on coherent ones, for each operand
+    combination (BF16_BWD_COMBOS) with its training cotangent, at the
+    chairs shape and with rescale 0 also with the other; on coherent flows
+    also with each path forced; each against CORR_BWD_BF16_BARS with its
+    control, failing after every case is printed. The shared path's boxes
+    must include one of a single 64-pixel chunk, one of more chunks than
+    the kernel's ring of two stages, and ragged ones (box_pixels). Then each
+    combination timed with rescale 1 at the default budget (ms, queued
+    ms_q, the bound at 989 TFLOP/s for one bf16 pass and a third of it for
+    the three passes of mxu "float32", the shared-path share, the float32
+    form's queued time on the same inputs), the plain version too for the
+    policy's combination. Updates ``err``; returns {"<shape> <flow>
+    <maps>/<mxu>": row}, "max_rel_err", "boxes" and "readings"
     ({"<maps>/<mxu>": [the largest float32-sum reading, the largest
     2-norm one, the smallest control]})."""
     cases = [("chairs", TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, 256,
-              radius, CORR_FLOWS["chairs"]),
-             ("sintel", 1, 55, 128, 256, radius, CORR_FLOWS["sintel"]),
-             ("sintel r=3", 1, 55, 128, SMALL_C, 3, CORR_FLOWS["sintel"])]
+              radius, CORR_FLOWS["chairs"], True),
+             ("sintel", 1, 55, 128, 256, radius, CORR_FLOWS["sintel"], True),
+             ("sintel r=3", 1, 55, 128, SMALL_C, 3, CORR_FLOWS["sintel"],
+              True)]
+    cases += [(f"{label} rescale=0", b, h, w, c, r,
+               {"coherent": flows["coherent"]}, False)
+              for label, b, h, w, c, r, flows, _ in cases[1:]]
     default = corr_cuda.TILE_BUDGET
     rows = {}
     worst = 0.0
     readings = {combo: [0.0, 0.0, math.inf] for combo in BF16_BWD_COMBOS}
     problems = []
+    boxes = {"one_chunk": 0, "beyond_ring": 0, "ragged": 0}
 
     def rel(got, want, norm=False):
         """max|got - want| / max|want| (|got - want| / |want|, 2-norms,
@@ -2941,12 +3008,18 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
         return max(one(a, b) for a, b in zip((got[0], *got[1]),
                                              (want[0], *want[1])))
 
-    for label, b, h, w, c, r, flows in cases:
+    for label, b, h, w, c, r, flows, rescale in cases:
         for flow, max_px in flows.items():
             f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h, w,
                                           c=c, flow=flow, b=b, max_px=max_px)
+            nb = box_pixels(torch, pyr, coords, r, rescale)
+            nb = nb[(nb > 0) & (nb <= default)]
+            boxes["one_chunk"] += int((nb <= BWD_BF16_CHUNK).sum())
+            boxes["beyond_ring"] += int((nb > 2 * BWD_BF16_CHUNK).sum())
+            boxes["ragged"] += int((nb % BWD_BF16_CHUNK > 0).sum())
             win = (2 * r + 1) ** 2 * len(pyr)
             g32 = torch.randn(b, h, w, win, device="cuda")
+            f32_ms_q = None
             for maps, mxu in BF16_BWD_COMBOS:
                 dt = getattr(torch, maps)
                 f1m, pyrm = f1.to(dt), tuple(p.to(dt) for p in pyr)
@@ -2956,28 +3029,33 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                 other = "float32" if mxu == "bfloat16" else "bfloat16"
                 bar32, bar_norm = CORR_BWD_BF16_BARS[(maps, mxu)]
                 bar = BF16_EPS if maps == "bfloat16" else bar32
-                gdts = ((maps, "float32" if maps == "bfloat16"
-                         else "bfloat16") if label == "chairs" else (maps,))
+                gdts = ((maps, "float32" if maps == "bfloat16" else
+                         "bfloat16") if label == "chairs" or not rescale
+                        else (maps,))
                 for gdt in gdts:
                     g = g32.to(getattr(torch, gdt))
                     want = corr_cuda.windowed_correlation_bwd_plain(
-                        f1m, pyrm, coords, g, r, mxu_dtype=mxu)
+                        f1m, pyrm, coords, g, r, rescale=rescale,
+                        mxu_dtype=mxu)
                     want32 = corr_cuda.windowed_correlation_bwd_plain(
-                        f1f, pyrf, coords, g, r, mxu_dtype=mxu)
+                        f1f, pyrf, coords, g, r, rescale=rescale,
+                        mxu_dtype=mxu)
                     ctrl32 = corr_cuda.windowed_correlation_bwd_plain(
-                        f1f, pyrf, coords, g, r, mxu_dtype=other)
+                        f1f, pyrf, coords, g, r, rescale=rescale,
+                        mxu_dtype=other)
                     paths = [("default", default)]
-                    if flow == "coherent" and gdt == maps:
+                    if flow == "coherent" and gdt == maps and rescale:
                         paths += [("warp", 0), ("shared", FORCE_SHARED)]
                     for path, budget in paths:
                         corr_cuda.TILE_BUDGET = budget
                         corr_cuda.reset_path_counts()
                         try:
                             got = corr_cuda.windowed_correlation_bwd_bf16_cuda(
-                                f1m, pyrm, coords, g, r, mxu_dtype=mxu)
+                                f1m, pyrm, coords, g, r, rescale=rescale,
+                                mxu_dtype=mxu)
                             got32 = corr_cuda.windowed_correlation_bwd_bf16_cuda(
-                                f1m, pyrm, coords, g, r, mxu_dtype=mxu,
-                                out_dtype=torch.float32)
+                                f1m, pyrm, coords, g, r, rescale=rescale,
+                                mxu_dtype=mxu, out_dtype=torch.float32)
                         finally:
                             corr_cuda.TILE_BUDGET = default
                         torch.cuda.synchronize()
@@ -3015,6 +3093,8 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                         if forced is not None and not (
                                 counts[forced] > counts[1 - forced]):
                             fail(f"the {path} path was not taken: {counts}")
+                if not rescale:
+                    continue
                 g = g32.to(dt)
                 corr_cuda.reset_path_counts()
                 run = (lambda: corr_cuda.windowed_correlation_bwd_bf16_cuda(
@@ -3022,10 +3102,15 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                 run()
                 share = shared_share(corr_cuda.path_counts()["bwd"])
                 work = bf16_corr_bwd_work(torch, f1m, pyrm, coords, r, g)
-                peak = BF16_FLOPS if mxu == "bfloat16" else TF32X2_FLOPS
+                peak = BF16_FLOPS if mxu == "bfloat16" else BF16X3_FLOPS
                 bound_ms, bound_by = bound(*work, peak=peak)
+                if f32_ms_q is None:
+                    f32_ms_q = queued_ms(torch, lambda: (
+                        corr_cuda.windowed_correlation_bwd_cuda(
+                            f1, pyr, coords, g32, r)))
                 row = {"ms": time_ms(torch, run),
                        "ms_q": queued_ms(torch, run),
+                       "f32_form_ms_q": f32_ms_q,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "shared_share": share,
                        "shape": f"B={b} {h}x{w} C={c} L=4 r={r}, {maps} "
@@ -3041,7 +3126,8 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                       f"{row['ms']:.4f} ms a launch, queued "
                       f"{row['ms_q']:.4f} ms, bound {bound_ms:.4f} ms "
                       f"({bound_by}); shared path on {100 * share:.1f}% of "
-                      f"(tile, level) blocks"
+                      f"(tile, level) blocks; the float32 form corr_bwd "
+                      f"queued {f32_ms_q:.4f} ms on these inputs"
                       + (f"; plain {row['plain_ms']:.4f} ms"
                          if "plain_ms" in row else ""))
     for (maps, mxu), (sums, norm, ctrl) in readings.items():
@@ -3050,10 +3136,17 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
               f"{sums:.3e} of max|plain| apart (bar {bars[0]:g}), their "
               f"2-norm {norm:.3e} (bar {bars[1]:g}), the control's 2-norm "
               f"at least {ctrl:.3e}")
+    print(f"corr_bwd_bf16 shared-path boxes checked: {boxes['one_chunk']} of "
+          f"one {BWD_BF16_CHUNK}-pixel chunk, {boxes['beyond_ring']} of more "
+          f"than two chunks (the ring's stages), {boxes['ragged']} with a "
+          f"ragged last chunk")
     if problems:
         fail("corr_bwd_bf16 disagrees with its plain version, or its bar "
              "does not separate the control, at " + "; ".join(problems))
+    if not all(boxes.values()):
+        fail(f"corr_bwd_bf16's checks miss a kind of box: {boxes}")
     rows["max_rel_err"] = worst
+    rows["boxes"] = boxes
     rows["readings"] = {f"{m}/{x}": v for (m, x), v in readings.items()}
     return rows
 
@@ -3072,12 +3165,18 @@ def mixed_train_phase(torch, pkg, weights, f32_run, err):
     t0 = time.perf_counter()
     cuobjdump = os.path.join(os.path.dirname(pkg.build.nvcc()), "cuobjdump")
     lib = pkg.build.build(("corr_bwd_bf16",))["corr_bwd_bf16"]
+    regs, spills = ptxas_usage(lib)
+    print(f"  corr_bwd_bf16 ptxas: {len(regs)} kernels, registers "
+          f"{min(regs)}-{max(regs)} a thread, spill bytes {sum(spills)}")
     sass = {"sass_tf32_mma": tensor_core_tf32_ops(cuobjdump, lib),
             "sass_bf16_mma": tensor_core_bf16_ops(cuobjdump, lib)}
     print(f"  corr_bwd_bf16 SASS, tensor-core MMAs: {sass}")
-    if not all(sass.values()):
-        fail("corr_bwd_bf16 lacks its TF32 (mxu float32) or BF16 (mxu "
-             "bfloat16) tensor-core MMAs in its SASS")
+    if (sass["sass_tf32_mma"]
+            or not sass["sass_bf16_mma"].get("HMMA.16816.F32.BF16")):
+        fail("corr_bwd_bf16's SASS must hold HMMA.16816.F32.BF16 (both mxu "
+             "settings multiply in bf16) and no TF32 MMA")
+    if sum(spills):
+        fail(f"corr_bwd_bf16 spills {sum(spills)} bytes")
     timings = bf16_corr_bwd_phase(torch, pkg.corr_cuda, pkg.corr,
                                   pkg.sampling, np.random.default_rng(12),
                                   4, err)
@@ -3968,7 +4067,7 @@ def main():
         "max_rel_err": mixed_train["max_rel_err"], "ms": main_bwd["ms"],
         "plain_ms": main_bwd["plain_ms"], "bound_ms": main_bwd["bound_ms"],
         "bound_by": main_bwd["bound_by"], "library_ms": None,
-        "ms_q": main_bwd["ms_q"],
+        "ms_q": main_bwd["ms_q"], "f32_form_ms_q": main_bwd["f32_form_ms_q"],
         "shape": f"chairs coherent: {main_bwd['shape']}",
         "readings": mixed_train["readings"],
         "by_input": {k: v for k, v in mixed_train.items()
@@ -3979,10 +4078,11 @@ def main():
                     "profile_mixed", "sass_tf32_mma", "sass_bf16_mma")}})
     print(f"corr_bwd_bf16: {main_bwd['ms']:.4f} ms a launch, queued "
           f"{main_bwd['ms_q']:.4f} ms, bound {main_bwd['bound_ms']:.4f} ms "
-          f"({main_bwd['bound_by']}, two TF32 passes at 247.5 TFLOP/s and "
-          f"HBM), "
-          f"plain {main_bwd['plain_ms']:.4f} ms, library none "
-          f"({main_bwd['shape']})")
+          f"({main_bwd['bound_by']}, three bf16 passes at 329.7 TFLOP/s "
+          f"and HBM), "
+          f"plain {main_bwd['plain_ms']:.4f} ms, library none, the float32 "
+          f"form corr_bwd queued {main_bwd['f32_form_ms_q']:.4f} ms on the "
+          f"same inputs ({main_bwd['shape']})")
     kernels.extend(mixed_rows + chain_rows)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

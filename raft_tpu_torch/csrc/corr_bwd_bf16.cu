@@ -11,18 +11,18 @@
 //     bfloat16 or float32, loaded as float32 (the TPU kernel's :302);
 //   - mxu "float32" on bfloat16 maps (the policy's default in training):
 //     the float32 coefficients times the maps at float32 precision. The
-//     coefficients are not bfloat16 values, so they keep the TF32 split of
-//     the float32 form; a bfloat16 map is exact in TF32 (its lo part is
-//     zero), so two TF32 passes, a_hi*b and a_lo*b, give what three give;
+//     map is exact in bfloat16, and the coefficient is split into three
+//     bfloat16 parts, c = hi + mid + lo (24 significant bits): three
+//     m16n8k16 bf16 mma.sync passes with float32 sums;
 //   - mxu "bfloat16" (an explicit corr_mxu_dtype="bfloat16", on bfloat16
 //     or float32 maps): the folded coefficient rounded to bfloat16 where
 //     the TPU kernel rounds g2 (:342, :346), the maps rounded to bfloat16
 //     (to nearest even), and one m16n8k16 bf16 mma.sync pass per 16 of K
 //     with float32 accumulation, as corr_fwd_bf16.cu multiplies.
-// df1 and the df2 levels are summed in float32 by the float32 form's
-// vector atomics into float32 buffers; the wrapper rounds each once, after
-// the whole sum, to the maps' dtype (`_windowed_bwd` casts outside its
-// kernel too). The float32 maps with mxu "float32" are corr_bwd.cu's.
+// df1 and the df2 levels are summed in float32 by 16-byte vector atomics
+// into float32 buffers; the wrapper rounds each once, after the whole sum,
+// to the maps' dtype (`_windowed_bwd` casts outside its kernel too). The
+// float32 maps with mxu "float32" are corr_bwd.cu's.
 //
 // The coefficient of neighbour (i, j) (x index first) is folded in the TPU
 // kernel's order: the cotangent scaled by 1/sqrt(C) first, then the x-side
@@ -32,34 +32,43 @@
 // hats.
 //
 // Bound on an H100 SXM (chairs training, B=8, 46x62 queries, C=256, 4
-// levels, r=4, bfloat16 maps): about 7.4 GFLOP of products for the two
-// C-long updates per in-range neighbour, 0.030 ms at 247 TFLOP/s (two TF32
-// passes: half the 495 TFLOP/s TF32 rate), 0.0075 ms at 989 TFLOP/s (bf16),
-// against about 80 MB of compulsory traffic (the bfloat16 maps read, the
-// cotangent, the float32 gradients written), 0.024 ms at 3.35 TB/s.
-// chip_smoke.py counts this run's in-range neighbours for the exact bounds.
+// levels, r=4, bfloat16 maps, coherent flows): about 6.1 GFLOP of products
+// for the two C-long updates per in-range neighbour, 0.019 ms at 329.7
+// TFLOP/s (three bf16 passes: a third of the 989 TFLOP/s bf16 rate; two
+// TF32 passes would take 0.025 ms at 247.5), 0.0062 ms at 989 TFLOP/s (mxu
+// "bfloat16"), against about 69 MB of compulsory traffic (the bfloat16
+// maps read, the cotangent, the float32 gradients written), 0.021 ms at
+// 3.35 TB/s: bound by bytes. chip_smoke.py counts this run's in-range
+// neighbours for the exact bounds.
 //
-// Design: the backward shell of corr_tile.cuh (corr_bwd_kernel: the tile,
-// box and path rule, the fold, the shared path's chunks and atomics, the
-// warp path), filled with a form per operand combination. Float32 maps are
-// staged in shared memory by cp.async, as in corr_bwd.cu; bfloat16 maps are
-// loaded, converted to float32 and stored, so that both take the float32
-// form's layout. The products read their fragments from the staged floats:
-// packed to bfloat16 pairs (mxu "bfloat16", which rounds a float32 map and
-// the coefficient there) or the coefficients split hi/lo (mxu "float32").
-// The warp path takes the float32 form's lanes, rounding a float32 map and
-// the coefficient to bfloat16 under mxu "bfloat16". C is 128 or 256
-// (RAFT-small's and RAFT-large's feature widths), radius 3 or 4, 1-4
-// levels, rescale 0 or 1.
+// Design: corr_tile.cuh's tile, box and path rule, fold and warp path
+// (the float32 form's lanes, rounding a float32 map and the coefficient to
+// bfloat16 under mxu "bfloat16"), with a shared path of its own in
+// corr_tile_bf16.cuh: box chunks of 64 pixels as the only loop, each block
+// over the whole C, the tile's F1 staged once, G built once a chunk in
+// bfloat16 planes, the maps staged in bfloat16 on a ring of two chunk
+// stages by cp.async, ldmatrix fragments, bf16 mma.sync, df2 out of the
+// accumulators by float4 atomics. C is 128 or 256 (RAFT-small's and
+// RAFT-large's feature widths), radius 3 or 4, 1-4 levels, rescale 0 or 1.
 //
 // What was hard, and what the design does about it:
+// - The parent's time was spread over its parts, not held by one: taking
+//   out the copies, the products, the G build or the df2 atomics each saved
+//   7-19% (scripts/corr_tile_bench.py bwd_bf16). Its channel chunks were
+//   the outer loop, so G was rebuilt for every 64 channels, and each chunk
+//   waited for its copies and crossed three barriers in turn. Here a chunk
+//   crosses two barriers, its G is built once, and the next chunk's copies
+//   land while it is multiplied.
+// - bfloat16 maps went through registers into float32 staging (twice the
+//   bytes of bfloat16); here they are staged as they are by cp.async, and
+//   only float32 maps are converted on the way in.
 // - Rounding points: the coefficient must be rounded after the fold, not
 //   its parts, and only under mxu "bfloat16"; the two paths round the same
 //   float32 values, so they multiply the same bfloat16 ones.
 // - m16n8k16 fragments pair two K-neighbours in one 32-bit register; G^T
-//   and the N-major staged maps have no K-contiguous pairs, so each pair is
-//   read as two floats and packed (__floats2bfloat162_rn, lower k in the
-//   low half).
+//   and the maps (N-major) have K along their rows, so ldmatrix .trans
+//   builds those fragments from 16-byte rows, padded so that the eight
+//   rows of a block fall in distinct banks.
 // - As in corr_bwd.cu, every sum ends in float atomics in no fixed order,
 //   so df1 and df2 are not bit-reproducible from run to run.
 
@@ -68,7 +77,7 @@
 
 #include <type_traits>
 
-#include "corr_tile.cuh"
+#include "corr_tile_bf16.cuh"
 
 namespace {
 
@@ -76,20 +85,17 @@ using namespace corr_tile;
 
 using bf16 = __nv_bfloat16;
 
-// A bf16 form: maps of type M, products in bfloat16 (kMxuBf16) or at
-// float32 precision on bfloat16 maps; C 128 or 256.
+// A bf16 form: maps of type M, products in bfloat16 (kMxuBf16: G one plane)
+// or at float32 precision on bfloat16 maps (G three planes); C 128 or 256.
 template <typename M, bool kMxuBf16>
 struct Bf16Form {
   static_assert(kMxuBf16 || std::is_same<M, bf16>::value,
                 "float32 maps at float32 precision are corr_bwd.cu's");
   using T = M;
-  static constexpr Product kProduct = kMxuBf16 ? Product::kBF16 : Product::k2xTF32;
-  static constexpr bool kTpuOrder = true;
-  static constexpr bool kBf16Cotangent = true;
-  static constexpr bool kAnyWidth = false;
+  static constexpr int kPlanes = kMxuBf16 ? 1 : 3;
+  // The warp path's coefficient and lanes (float32 FMAs): the coefficient
+  // and a float32 map rounded to bfloat16 under mxu "bfloat16".
   __device__ __forceinline__ static float coef(float c) { return kMxuBf16 ? round_bf16(c) : c; }
-  // Four channels as floats, a float32 map rounded to bfloat16 under mxu
-  // "bfloat16" (the warp path's products are float32 FMAs).
   template <typename Vec>
   __device__ __forceinline__ static float4 load(const float* p) {
     static_assert(std::is_same<Vec, float4>::value, "the bf16 forms' lanes are float4s");
@@ -105,15 +111,6 @@ struct Bf16Form {
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     return make_float4(a.x, a.y, b.x, b.y);
   }
-  // The shared path's staging: a float32 map by cp.async as it is (the
-  // fragments' packing rounds it), a bfloat16 one converted.
-  __device__ __forceinline__ static void stage4(float* dst, const float* src, bool ok) {
-    cp_async16(dst, src, ok);
-  }
-  __device__ __forceinline__ static void stage4(float* dst, const bf16* src, bool ok) {
-    *reinterpret_cast<float4*>(dst) =
-        ok ? load<float4>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 };
 
 // The three operand combinations: bfloat16 maps with mxu float32 or
@@ -121,11 +118,12 @@ struct Bf16Form {
 struct Bf16Forms {
   template <int R>
   static cudaError_t launch(const BwdArgs& a, int maps_bf16, int mxu_bf16) {
+    using corr_tile_bf16::launch_width;
     if (maps_bf16) {
-      return mxu_bf16 ? launch_bwd_width<R, Bf16Form<bf16, true>>(a)
-                      : launch_bwd_width<R, Bf16Form<bf16, false>>(a);
+      return mxu_bf16 ? launch_width<R, Bf16Form<bf16, true>>(a)
+                      : launch_width<R, Bf16Form<bf16, false>>(a);
     }
-    return mxu_bf16 ? launch_bwd_width<R, Bf16Form<float, true>>(a) : cudaErrorInvalidValue;
+    return mxu_bf16 ? launch_width<R, Bf16Form<float, true>>(a) : cudaErrorInvalidValue;
   }
 };
 

@@ -21,9 +21,9 @@
 // The forward's kernel, corr_fwd_kernel below, is one shell over two forms
 // of its paths: the float32 form (corr_fwd.cu) and the bf16 form
 // (corr_fwd_bf16.cu), each its own translation unit so that both build at
-// once. The backward's, corr_bwd_kernel, is one kernel over three product
-// forms (3xTF32 on float32 maps, corr_bwd.cu; two TF32 passes or one bf16
-// pass, corr_bwd_bf16.cu), the same split into translation units.
+// once. The backward's, corr_bwd_kernel, is the float32 form's
+// (corr_bwd.cu); the bf16 forms (corr_bwd_bf16.cu) run a kernel of their
+// own on this tile, box, path rule and warp path (corr_tile_bf16.cuh).
 //
 // Products are mma.sync m16n8k8 in 3xTF32: both operands are activations,
 // split in registers after their shared-memory load (split_tf32 of
@@ -377,7 +377,8 @@ int fwd_entry(const void* fmap1, const void* const* levels, const int* hs, const
 
 // -- the backward's shell -----------------------------------------------------
 //
-// The backward (corr_bwd.cu; its bf16 forms in corr_bwd_bf16.cu) folds the
+// The backward (corr_bwd.cu; the bf16 forms' own shared path is in
+// corr_tile_bf16.cuh) folds the
 // window's cotangents of each query into one coefficient per neighbour,
 // coef[n] = dL/d(dot n), and then, for every in-range neighbour,
 //   df1[q]   += coef[n] * f2_l[n]
@@ -398,14 +399,7 @@ int fwd_entry(const void* fmap1, const void* const* levels, const int* hs, const
 //
 // A form of the backward (a struct) supplies
 //   T                 the maps' type;
-//   kProduct          the shared path's products: Product::k3xTF32 (float32
-//                     maps), k2xTF32 (the coefficients split, bfloat16 maps
-//                     exact in TF32) or kBF16 (both operands rounded to
-//                     bfloat16, one m16n8k16 pass per 16 of K);
-//   kTpuOrder         the fold in the TPU kernel's order (the cotangent
-//                     scaled first, then the x side, then the y side) rather
-//                     than the four corner weights of each window in turn;
-//   kBf16Cotangent    whether the cotangent may be bfloat16 (a runtime flag);
+//   kProduct          the shared path's products: Product::k3xTF32;
 //   kAnyWidth         whether C may be any width of the float32 lookup, or
 //                     only 128 and 256 (RAFT-small's and RAFT-large's);
 //   coef(c)           the coefficient as the warp path multiplies it;
@@ -421,7 +415,7 @@ constexpr int kRowCopies = kQ * (kBCC / 4) / kThreads;  // 4-channel copies a th
 static_assert(kBNC == kQ, "F1c, F2c and O share a shape");
 static_assert(kRowCopies * kThreads == kQ * (kBCC / 4), "copies split evenly");
 
-enum class Product { k3xTF32, k2xTF32, kBF16 };
+enum class Product { k3xTF32 };
 
 struct LevelGrads {
   float* ptr[kMaxLevels];
@@ -431,78 +425,26 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Two floats as the packed bfloat16 pair of an MMA fragment (lo = the lower
-// k), each rounded to nearest even.
+// Two floats as a packed bfloat16 pair (lo in the low half), each rounded to
+// nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// The m16n8k16 A fragment of the 16 x 16 block at (m0, k0) of a float
-// matrix whose element (m, k) is at p[m * sm + k * sk], packed to bfloat16
-// pairs (mma_bf16's layout).
-__device__ __forceinline__ void load_a_bf16(const float* p, int sm, int sk, int m0, int k0,
-                                            uint32_t* a) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int m = m0 + g + 8 * (e & 1), k = k0 + 2 * t + 8 * (e >> 1);
-    a[e] = pack_bf16(p[m * sm + k * sk], p[m * sm + (k + 1) * sk]);
-  }
-}
-
-// The B fragment of the 16 x 8 block at (k0, n0) of a float matrix whose
-// element (k, n) is at p[k * sk + n * sn], packed to bfloat16 pairs.
-__device__ __forceinline__ void load_b_bf16(const float* p, int sk, int sn, int k0, int n0,
-                                            uint32_t* b) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int k = k0 + 2 * t + 8 * e;
-    b[e] = pack_bf16(p[k * sk + (n0 + g) * sn], p[(k + 1) * sk + (n0 + g) * sn]);
-  }
-}
-
-// One k8 step of a product whose B operand is exact in TF32 (a bfloat16
-// map): a split hi and lo, a_hi*b into a fresh sum added to `big` (as
-// mma_3xtf32), a_lo*b chained in `small`; what mma_3xtf32 gives, since
-// b's lo part is zero.
-__device__ __forceinline__ void mma_2xtf32(float* big, float* small, const uint32_t* ah,
-                                           const uint32_t* al, const uint32_t* bh) {
-  float step[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(step, ah, bh);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) big[e] += step[e];
-  mma_tf32(small, al, bh);
-}
-
-// One K step (8, or 16 for kBF16) of a warp's 16 x 32 block: big[nt] (and
-// small[nt]) += A (rows m0.., K k0..) . B (K k0.., columns n0 + 8 nt..),
-// A's element (m, k) at a[m * am + k * ak], B's (k, n) at b[k * bk + n * bn].
+// One k8 step of a warp's 16 x 32 block: big[nt] and small[nt] += A (rows
+// m0.., K k0..) . B (K k0.., columns n0 + 8 nt..) in 3xTF32, A's element
+// (m, k) at a[m * am + k * ak], B's (k, n) at b[k * bk + n * bn].
 template <Product P>
 __device__ __forceinline__ void product_step(float (*big)[4], float (*small)[4], const float* a,
                                              int am, int ak, const float* b, int bk, int bn,
                                              int m0, int n0, int k0) {
-  if constexpr (P == Product::kBF16) {
-    uint32_t af[4], bf[2];
-    load_a_bf16(a, am, ak, m0, k0, af);
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  load_a(a, am, ak, m0, k0, ah, al);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      load_b_bf16(b, bk, bn, k0, n0 + 8 * nt, bf);
-      mma_bf16(big[nt], af, bf);
-    }
-  } else {
-    uint32_t ah[4], al[4], bh[2], bl[2];
-    load_a(a, am, ak, m0, k0, ah, al);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      load_b(b, bk, bn, k0, n0 + 8 * nt, bh, bl);
-      if constexpr (P == Product::k3xTF32) {
-        mma_3xtf32(big[nt], small[nt], ah, al, bh, bl);
-      } else {
-        mma_2xtf32(big[nt], small[nt], ah, al, bh);
-      }
-    }
+  for (int nt = 0; nt < 4; ++nt) {
+    load_b(b, bk, bn, k0, n0 + 8 * nt, bh, bl);
+    mma_3xtf32(big[nt], small[nt], ah, al, bh, bl);
   }
 }
 
@@ -530,18 +472,13 @@ __device__ __forceinline__ float2 scaled(const float s, const float2 v) {
 
 __device__ __forceinline__ float scaled(const float s, const float v) { return s * v; }
 
-__device__ __forceinline__ float cotangent(const float* g, long long k) { return g[k]; }
-__device__ __forceinline__ float cotangent(const __nv_bfloat16* g, long long k) {
-  return __bfloat162float(g[k]);
-}
-
 // coef (kQ x D*D): the cotangent of every dot of the tile's queries at
-// level l, from the cotangent g (float32 or bfloat16, read as float32);
-// zero for a slot past the image or a centre that is not near. Window
-// (a, b) = (x index, y index) reads neighbour (a, b) with weight w00,
-// (a+1, b) with w10, (a, b+1) with w01 and (a+1, b+1) with w11.
-template <int R, bool kTpuOrder, typename G>
-__device__ void fold_cotangents(const TileQueries& t, const G* __restrict__ grad,
+// level l, from the float32 cotangent g; zero for a slot past the image or
+// a centre that is not near. Window (a, b) = (x index, y index) reads
+// neighbour (a, b) with weight w00, (a+1, b) with w10, (a, b+1) with w01 and
+// (a+1, b+1) with w11.
+template <int R>
+__device__ void fold_cotangents(const TileQueries& t, const float* __restrict__ grad,
                                 int num_levels, int l, float inv_scale, float* coef) {
   constexpr int D = 2 * R + 2;
   constexpr int WIN = 2 * R + 1;
@@ -554,34 +491,16 @@ __device__ void fold_cotangents(const TileQueries& t, const G* __restrict__ grad
       const float dx = t.dx[qi], dy = t.dy[qi];
       const int j = n / D;  // y index of the neighbour
       const int i = n % D;  // x index
-      if constexpr (kTpuOrder) {
-        // U_b at this neighbour's x: window i - 1 with weight dx, window i
-        // with 1 - dx, for the window rows b = j - 1 and j; then g2 =
-        // U_{j-1} dy + U_j (1 - dy)
-        auto gs = [&](int a, int b) { return cotangent(grad, off + a * WIN + b) * inv_scale; };
-        float u_prev = 0.f, u_here = 0.f;
-        if (j > 0) {
-          if (i > 0) u_prev += gs(i - 1, j - 1) * dx;
-          if (i < WIN) u_prev += gs(i, j - 1) * (1.f - dx);
-        }
-        if (j < WIN) {
-          if (i > 0) u_here += gs(i - 1, j) * dx;
-          if (i < WIN) u_here += gs(i, j) * (1.f - dx);
-        }
-        c = u_prev * dy;
-        c += u_here * (1.f - dy);
-      } else {
-        auto gs = [&](int a, int b) { return cotangent(grad, off + a * WIN + b); };
-        const float w00 = (1.f - dx) * (1.f - dy);
-        const float w10 = dx * (1.f - dy);
-        const float w01 = (1.f - dx) * dy;
-        const float w11 = dx * dy;
-        if (i < WIN && j < WIN) c += w00 * gs(i, j);
-        if (i > 0 && j < WIN) c += w10 * gs(i - 1, j);
-        if (i < WIN && j > 0) c += w01 * gs(i, j - 1);
-        if (i > 0 && j > 0) c += w11 * gs(i - 1, j - 1);
-        c *= inv_scale;
-      }
+      auto gs = [&](int a, int b) { return grad[off + a * WIN + b]; };
+      const float w00 = (1.f - dx) * (1.f - dy);
+      const float w10 = dx * (1.f - dy);
+      const float w01 = (1.f - dx) * dy;
+      const float w11 = dx * dy;
+      if (i < WIN && j < WIN) c += w00 * gs(i, j);
+      if (i > 0 && j < WIN) c += w10 * gs(i - 1, j);
+      if (i < WIN && j > 0) c += w01 * gs(i, j - 1);
+      if (i > 0 && j > 0) c += w11 * gs(i - 1, j - 1);
+      c *= inv_scale;
     }
     coef[idx] = c;
   }
@@ -597,7 +516,7 @@ __device__ void tile_grads(const TileQueries& t, const typename Form::T* __restr
   constexpr int D = 2 * R + 2;
   constexpr int DD = D * D;
   constexpr Product P = Form::kProduct;
-  constexpr int kK = P == Product::kBF16 ? 16 : 8;  // K of one product step
+  constexpr int kK = 8;  // K of one product step
   float* G = smem;                  // (query, box pixel of the chunk)
   float* F1c = G + kQ * kLdg;       // (query, channel of the chunk)
   float* F2c = F1c + kQ * kLd;      // (box pixel, channel)
@@ -618,7 +537,7 @@ __device__ void tile_grads(const TileQueries& t, const typename Form::T* __restr
       Form::stage4(F1c + row * kLd + 4 * c16, fmap1 + (ok ? t.q[row] * C : 0) + c0 + 4 * c16, ok);
     }
     cp_async_commit();
-    float d1[4][4], d1s[4][4];  // the big and small sums (kBF16: d1 only)
+    float d1[4][4], d1s[4][4];  // the big and small sums
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -793,13 +712,7 @@ corr_bwd_kernel(const typename Form::T* __restrict__ fmap1, const Levels lv,
   float* d2 = dlv.ptr[l] + base;
   const bool shared = choose_path(!kMasked, nb, budget, path_counts);
   if (nb == 0) return;  // no query of the tile has a neighbour on this level
-  if (Form::kBf16Cotangent && grad_bf16) {
-    fold_cotangents<R, Form::kTpuOrder>(t, static_cast<const __nv_bfloat16*>(grad), num_levels,
-                                        l, inv_scale, coef);
-  } else {
-    fold_cotangents<R, Form::kTpuOrder>(t, static_cast<const float*>(grad), num_levels, l,
-                                        inv_scale, coef);
-  }
+  fold_cotangents<R>(t, static_cast<const float*>(grad), num_levels, l, inv_scale, coef);
   if (!shared) {
     warp_grads<R, NV, Vec, kMasked, Form>(t, fmap1, f2, d2, h2, w2, C, coef, df1);
     return;

@@ -155,6 +155,10 @@ B, H, W, C, R = 2, 6, 7, 16, 3
 
 @pytest.fixture(scope="module")
 def lookup_inputs():
+    return lookup_arrays()
+
+
+def lookup_arrays():
     """fmap1 and fmap2 (B, 6, 7, 16) and coords with flows up to 6 px."""
     rng = np.random.default_rng(11)
     f1 = rng.standard_normal((B, H, W, C)).astype(np.float32)
@@ -164,22 +168,32 @@ def lookup_inputs():
     return f1, f2, coords
 
 
+def jax_lookup(maps, out):
+    """The TPU kernel with ``mxu_dtype="bfloat16"`` in the interpreter on
+    ``lookup_arrays()``, the maps in ``maps``, the windows in ``out``."""
+    f1, f2, coords = lookup_arrays()
+    jdt = jnp.dtype(maps)
+    return _compiled(lambda a, b, c: windowed_correlation_pallas_fused(
+        a, jcorr.build_feature_pyramid(b, 2), c, R, interpret=True,
+        mxu_dtype="bfloat16", out_dtype=jnp.dtype(out)),
+        jnp.asarray(f1, jdt), jnp.asarray(f2, jdt), coords)
+
+
 @pytest.mark.parametrize("maps,out", [("bfloat16", "bfloat16"),
                                       ("float32", "float32")])
 def test_bf16_lookup_matches_pallas_interpret(lookup_inputs, maps, out):
     """The bf16 form's plain version (``mxu_dtype="bfloat16"``) against
-    the TPU kernel with ``mxu_dtype="bfloat16"`` in the interpreter, on
-    bfloat16 maps with bfloat16 windows (the mixed model's lookup) and on
-    float32 maps with float32 windows (``corr_mxu_dtype="bfloat16"`` alone);
-    the float32 maps' products differ from float32 ones by far more than
-    the bar."""
+    the TPU kernel with ``mxu_dtype="bfloat16"`` in the interpreter
+    (``jax_lookup``, committed by ``tests/mixed_goldens.py``), on bfloat16
+    maps with bfloat16 windows (the mixed model's lookup) and on float32
+    maps with float32 windows (``corr_mxu_dtype="bfloat16"`` alone); the
+    float32 maps' products differ from float32 ones by far more than the
+    bar."""
+    import mixed_goldens
+
     f1, f2, coords = lookup_inputs
-    jdt, tdt = jnp.dtype(maps), getattr(torch, maps)
-    odt = jnp.dtype(out)
-    want = _compiled(lambda a, b, c: windowed_correlation_pallas_fused(
-        a, jcorr.build_feature_pyramid(b, 2), c, R, interpret=True,
-        mxu_dtype="bfloat16", out_dtype=odt),
-        jnp.asarray(f1, jdt), jnp.asarray(f2, jdt), coords)
+    tdt = getattr(torch, maps)
+    want = mixed_goldens.array(f"lookup.{maps}", out)
     pyr = corr.build_feature_pyramid(_t(f2).to(tdt), 2)
     got = corr.alternate_lookup(_t(f1).to(tdt), pyr, _t(coords), R,
                                 mxu_dtype="bfloat16",
@@ -234,6 +248,10 @@ SB, SH, SW, CC = 2, 9, 7, 12
 
 @pytest.fixture(scope="module")
 def step_setup():
+    return step_arrays()
+
+
+def step_arrays():
     """A flax ``BasicUpdateBlock`` filled from a seed, its JAX packings,
     the port's block with the same weights and bfloat16 inputs."""
     rng = np.random.default_rng(3)
@@ -264,21 +282,33 @@ def step_setup():
     return variables, mats, block.eval(), arrays, ports
 
 
+def jax_step(depth):
+    """The TPU step kernel at ``dtype=bfloat16`` in the interpreter on
+    ``step_arrays()``: (h2,) at depth 'mg', (h2, delta) at 'mgf'."""
+    _, (mmats, gmats, fmats), _, arrays, _ = step_arrays()
+    out = _compiled(lambda *a: step_pallas.fused_step(
+        *a, mmats, gmats, fmats if depth == "mgf" else None,
+        dtype=jnp.bfloat16, interpret=True), *arrays)
+    return (out,) if depth == "mg" else out
+
+
 @pytest.mark.parametrize("depth", ["mg", "mgf"])
 def test_bf16_step_matches_pallas_fused_step(step_setup, depth):
     """The bf16 form's plain version against the TPU step kernel at
-    ``dtype=bfloat16`` in the interpreter, at both depths."""
-    _, (mmats, gmats, fmats), block, arrays, ports = step_setup
-    want = _compiled(lambda *a: step_pallas.fused_step(
-        *a, mmats, gmats, fmats if depth == "mgf" else None,
-        dtype=jnp.bfloat16, interpret=True), *arrays)
+    ``dtype=bfloat16`` in the interpreter (``jax_step``, committed by
+    ``tests/mixed_goldens.py``), at both depths."""
+    import mixed_goldens
+
+    _, _, block, _, ports = step_setup
+    want = [mixed_goldens.array(f"step.{depth}.{name}", "bfloat16")
+            for name in ("h2", "delta")[:1 if depth == "mg" else 2]]
     head = block.flow_head.convs() if depth == "mgf" else None
     got = step_cuda.fused_step_plain(
         *ports, (block.encoder.convs(), block.gru.convs(), head))
     if depth == "mg":
-        want, got = (want,), (got,)
+        got = (got,)
     for a, b, bar in zip(got, want, (_bar, _own_bar)):
-        assert a.dtype == BF16 and b.dtype == jnp.bfloat16
+        assert a.dtype == BF16
         _assert_near(a, b, bar(b, 8 * EPS))
 
 

@@ -139,13 +139,6 @@ def _xla_sigmoid(x):
 
 
 @pytest.fixture
-def chain_flags(monkeypatch):
-    """JAX's refine iteration as the chain of the two Pallas kernels."""
-    for k, v in CHAIN_FLAGS.items():
-        monkeypatch.setenv(k, v)
-
-
-@pytest.fixture
 def chain_conv_flags(monkeypatch):
     """JAX's refine iteration as its chain off a TPU (flax convolutions)."""
     for k, v in CHAIN_CONV_FLAGS.items():
@@ -175,6 +168,10 @@ SB, SH, SW, CC = 2, 9, 7, 12
 
 @pytest.fixture(scope="module")
 def chain_setup():
+    return chain_arrays()
+
+
+def chain_arrays():
     """A flax ``BasicUpdateBlock`` filled from a seed, its JAX packings,
     the port's block with the same weights, and bfloat16 inputs (as numpy
     float32 holding bfloat16 values)."""
@@ -205,22 +202,32 @@ def chain_setup():
 def _held(got, want, control, what):
     """``got`` (bfloat16) within 8 EPS of max(1, max|want|) and NORM_REL
     on the 2-norm, the float32 ``control`` above NORM_REL."""
-    assert got.dtype == BF16 and want.dtype == jnp.bfloat16, what
+    assert got.dtype == BF16, what
     assert _dist(got, want) <= _bar(want, 8 * EPS), (what, _dist(got, want))
     assert _rel2(got, want) <= NORM_REL, (what, _rel2(got, want))
     assert _rel2(control, want) > NORM_REL, (what, _rel2(control, want))
 
 
+def jax_motion():
+    """The TPU motion kernel at ``dtype=bfloat16`` in the interpreter on
+    ``chain_arrays()``'s bfloat16 flow and corr."""
+    _, (mmats, _), _, acts = chain_arrays()
+    return _compiled(lambda f, c: motion_pallas.motion_encoder(
+        f, c, mmats, dtype=jnp.bfloat16, interpret=True),
+        jnp.asarray(acts[3], jnp.bfloat16), jnp.asarray(acts[2], jnp.bfloat16))
+
+
 def test_bf16_motion_plain_matches_pallas_interpret(chain_setup):
     """``motion_encoder_plain`` on bfloat16 flow and corr against the TPU
-    motion kernel at ``dtype=bfloat16`` in the interpreter: bfloat16 out
-    (JAX's ``promote(compute dtype, flow.dtype)``), the flow channels the
-    given flow bit for bit."""
-    _, (mmats, _), block, acts = chain_setup
+    motion kernel at ``dtype=bfloat16`` in the interpreter (``jax_motion``,
+    committed by ``tests/mixed_goldens.py``): bfloat16 out (JAX's
+    ``promote(compute dtype, flow.dtype)``), the flow channels the given
+    flow bit for bit."""
+    import mixed_goldens
+
+    _, _, block, acts = chain_setup
     flow, cor = acts[3], acts[2]
-    want = _compiled(lambda f, c: motion_pallas.motion_encoder(
-        f, c, mmats, dtype=jnp.bfloat16, interpret=True),
-        jnp.asarray(flow, jnp.bfloat16), jnp.asarray(cor, jnp.bfloat16))
+    want = mixed_goldens.array("chain.motion", "bfloat16")
     convs = block.encoder.convs()
     with torch.inference_mode():
         got = motion_cuda.motion_encoder_plain(_t(flow).to(BF16),
@@ -232,26 +239,42 @@ def test_bf16_motion_plain_matches_pallas_interpret(chain_setup):
     np.testing.assert_array_equal(_np(want[..., 126:]), flow)
 
 
+def _gru_inputs(block, acts):
+    """The GRU's h and x parts (inp, [motion | flow]), x's motion from the
+    port's bfloat16 motion encoder."""
+    with torch.inference_mode():
+        mot = motion_cuda.motion_encoder_plain(
+            _t(acts[3]).to(BF16), _t(acts[2]).to(BF16), block.encoder.convs())
+    return acts[0], (acts[1], _np(mot))
+
+
+def jax_gru(parts):
+    """The TPU GRU kernel at ``dtype=bfloat16`` in the interpreter on
+    ``chain_arrays()``, x whole (``parts`` 1) or in its two parts."""
+    _, (_, gmats), block, acts = chain_arrays()
+    net, xs = _gru_inputs(block, acts)
+    jx = tuple(jnp.asarray(x, jnp.bfloat16) for x in xs)
+    if parts == 1:
+        jx = jnp.concatenate(jx, axis=-1)
+    return _compiled(lambda h, x: gru_pallas.sepconv_gru(
+        h, x, gmats, dtype=jnp.bfloat16, interpret=True),
+        jnp.asarray(net, jnp.bfloat16), jx)
+
+
 @pytest.mark.parametrize("parts", [1, 2], ids=["x-whole", "x-parts"])
 def test_bf16_gru_plain_matches_pallas_interpret(chain_setup, parts,
                                                  monkeypatch):
     """``sepconv_gru_plain`` on a bfloat16 h and x (whole, or the parts
     (inp, [motion | flow]) the chain hands it) against the TPU GRU kernel
-    at ``dtype=bfloat16`` in the interpreter: h' in h's dtype, within 8
-    ``EPS``; with XLA's CPU sigmoid in the plain version, within
-    ``NORM_REL`` on the 2-norm too, the float32 control above it."""
-    _, (_, gmats), block, acts = chain_setup
-    net, inp = acts[0], acts[1]
-    with torch.inference_mode():
-        mot = motion_cuda.motion_encoder_plain(
-            _t(acts[3]).to(BF16), _t(acts[2]).to(BF16), block.encoder.convs())
-    xs = (inp, _np(mot))
-    jx = tuple(jnp.asarray(x, jnp.bfloat16) for x in xs)
-    if parts == 1:
-        jx = jnp.concatenate(jx, axis=-1)
-    want = _compiled(lambda h, x: gru_pallas.sepconv_gru(
-        h, x, gmats, dtype=jnp.bfloat16, interpret=True),
-        jnp.asarray(net, jnp.bfloat16), jx)
+    at ``dtype=bfloat16`` in the interpreter (``jax_gru``, committed by
+    ``tests/mixed_goldens.py``): h' in h's dtype, within 8 ``EPS``; with
+    XLA's CPU sigmoid in the plain version, within ``NORM_REL`` on the
+    2-norm too, the float32 control above it."""
+    import mixed_goldens
+
+    _, _, block, acts = chain_setup
+    net, xs = _gru_inputs(block, acts)
+    want = mixed_goldens.array(f"chain.gru.{parts}", "bfloat16")
     tx = tuple(_t(x).to(BF16) for x in xs)
     if parts == 1:
         tx = torch.cat(tx, dim=-1)
@@ -262,32 +285,45 @@ def test_bf16_gru_plain_matches_pallas_interpret(chain_setup, parts,
             _t(net), tuple(_t(x) for x in xs), convs)
         monkeypatch.setattr(torch, "sigmoid", _xla_sigmoid)
         as_xla = gru_cuda.sepconv_gru_plain(_t(net).to(BF16), tx, convs)
-    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    assert got.dtype == BF16
     assert _dist(got, want) <= _bar(want, 8 * EPS), _dist(got, want)
     _held(as_xla, want, control, "gru, XLA's sigmoid")
 
 
-def test_bf16_chain_block_matches_jax(chain_setup, chain_flags):
-    """``BasicUpdateBlock(update_impl="chain")`` in bfloat16 against the
-    flax block at ``dtype=bfloat16`` on its chain (the two Pallas kernels
-    in the interpreter, then the bfloat16 heads), with the mask head and
-    without it (the non-final iterations)."""
-    variables, _, block, acts = chain_setup
+def jax_chain_block():
+    """The flax block at ``dtype=bfloat16`` on its chain (``CHAIN_FLAGS``
+    set in the environment: the two Pallas kernels in the interpreter, then
+    the bfloat16 heads) on ``chain_arrays()``, with the mask head and
+    without it."""
+    variables, _, _, acts = chain_arrays()
     arrays = [jnp.asarray(a, jnp.bfloat16) for a in acts]
     jblock = JaxUpdateBlock(dtype=jnp.bfloat16)
-    want = _compiled(lambda v, *a: (
+    return _compiled(lambda v, *a: (
         jblock.apply(v, *a, compute_mask=True),
         jblock.apply(v, *a, compute_mask=None)), variables, *arrays)
+
+
+def test_bf16_chain_block_matches_jax(chain_setup):
+    """``BasicUpdateBlock(update_impl="chain")`` in bfloat16 against the
+    flax block at ``dtype=bfloat16`` on its chain (``jax_chain_block``,
+    committed by ``tests/mixed_goldens.py``), with the mask head and
+    without it (the non-final iterations)."""
+    import mixed_goldens
+
+    _, _, block, acts = chain_setup
+    want = [[mixed_goldens.array(f"chain.block.{mask}.{k}", "bfloat16")
+             if (mask, k) != ("nomask", 1) else None for k in range(3)]
+            for mask in ("mask", "nomask")]
     ports = [_t(a).to(BF16) for a in acts]
     with torch.inference_mode():
         got = (block(*ports, compute_mask=True, update_impl="chain"),
                block(*ports, compute_mask=None, update_impl="chain"))
-    assert got[1][1] is None and want[1][1] is None
+    assert got[1][1] is None
     for outs, wants in zip(got, want):
         for a, b, bar in zip(outs, wants, (_bar, _bar, _own_bar)):
             if b is None:
                 continue
-            assert a.dtype == BF16 and b.dtype == jnp.bfloat16
+            assert a.dtype == BF16
             assert _dist(a, b) <= bar(b, 8 * EPS), _dist(a, b)
 
 
@@ -392,33 +428,40 @@ def _through_autograd(monkeypatch, record=None):
         gru_cuda.sepconv_gru_autograd))
 
 
+def jax_chain_step(npz, batch, excess=False):
+    """JAX's mixed train step on its chain (``CHAIN_CONV_FLAGS`` set in the
+    environment) from the fixture weights ``npz``: (the state after the
+    step, its metrics, the flat parameters' unflatten)."""
+    state, unflatten = fixture.flat_train_state(
+        JaxRAFT(JaxRAFTConfig(iters=KW["iters"], mixed_precision=True)),
+        convert_state_dict(npz), jax_fetch_optimizer(JaxTrainConfig(**KW)))
+    state, metrics = _compiled(
+        jax_train_step(JaxTrainConfig(**KW), donate=False), state,
+        {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(0), excess=excess)
+    return state, metrics, unflatten
+
+
 @pytest.fixture(scope="module")
 def chain_steps(npz_state):
     """JAX's mixed train step on its chain, compiled rounding at every
-    bfloat16 operation and as XLA compiles it by default, and the port's
-    mixed and float32 steps on ``update_impl="chain"`` through the
+    bfloat16 operation, the metrics of that step as XLA compiles it by
+    default (committed in ``mixed_goldens.GOLDEN``, "chain"), and the
+    port's mixed and float32 steps on ``update_impl="chain"`` through the
     kernels' autograd Functions, from the fixture weights on one batch:
     ((JAX's metrics, clipped gradients), the default compile's metrics),
     (the port's mixed metrics and state), (the float32 metrics and
     gradients). AdamW's first moment after one step is (1 - b1) times the
     clipped gradient."""
+    import mixed_goldens
+
     batch = _batch()
     mp = pytest.MonkeyPatch()
     for k, v in CHAIN_CONV_FLAGS.items():
         mp.setenv(k, v)
     _through_autograd(mp)
     try:
-        jax_runs = []
-        for excess in (False, True):
-            state, unflatten = fixture.flat_train_state(
-                JaxRAFT(JaxRAFTConfig(iters=KW["iters"],
-                                      mixed_precision=True)),
-                convert_state_dict(npz_state),
-                jax_fetch_optimizer(JaxTrainConfig(**KW)))
-            jax_runs.append(_compiled(
-                jax_train_step(JaxTrainConfig(**KW), donate=False), state,
-                {k: jnp.asarray(v) for k, v in batch.items()},
-                jax.random.PRNGKey(0), excess=excess))
+        state, jm, unflatten = jax_chain_step(npz_state, batch)
         runs = []
         for policy in (True, False):
             model = RAFT(RAFTConfig(mixed_precision=policy))
@@ -430,7 +473,7 @@ def chain_steps(npz_state):
             runs.append((metrics, st))
     finally:
         mp.undo()
-    (state, jm), (_, jd) = jax_runs
+    jd = mixed_goldens.load()["chain"]
     adam = next(s for s in jax.tree_util.tree_leaves(
         state.opt_state, is_leaf=lambda s: hasattr(s, "mu"))
         if hasattr(s, "mu"))
@@ -439,8 +482,8 @@ def chain_steps(npz_state):
         batch_stats=state.batch_stats)))
     (metrics, st), (fm, fst) = runs
     fgrads = {n: p.grad for n, p in fst.model.named_parameters()}
-    return (({k: float(v) for k, v in jm.items()}, jgrads),
-            {k: float(v) for k, v in jd.items()}), (metrics, st), (fm, fgrads)
+    return (({k: float(v) for k, v in jm.items()}, jgrads), jd), (
+        metrics, st), (fm, fgrads)
 
 
 def test_mixed_chain_train_step_matches_jax(chain_steps):

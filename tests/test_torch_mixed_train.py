@@ -163,22 +163,24 @@ def _corr_inputs(c, r, seed, levels, b=B, h=H, w=W, px=5.0):
 SUM_REL = 1e-5
 
 
-@pytest.mark.parametrize("maps,mxu,gdt,c,r,rescale,levels", CORR_CASES)
-def test_bf16_corr_backward_matches_pallas_interpret(maps, mxu, gdt, c, r,
-                                                     rescale, levels):
-    """``windowed_correlation_bwd_plain`` with the bf16 kernel's dtypes
-    against ``jax.vjp`` of ``windowed_correlation_pallas_fused`` (its
-    custom VJP runs the Pallas ``_bwd_kernel`` in the interpreter) with the
-    same ``mxu_dtype``, the windows and cotangent in ``gdt``: df1 and each
-    df2 in the maps' dtype within one ``EPS`` of max|JAX| (bfloat16) or
-    ``SUM_REL`` (float32); on float32 copies of the maps, the float32 sums
-    within ``SUM_REL``, and the plain version at the other ``mxu_dtype``
-    further off than that."""
+def _corr_operands(case):
+    """CORR_CASES[case]'s port operands: fmap1 and the pyramid in the maps'
+    dtype, the centres, the cotangent in its dtype (``_corr_inputs``)."""
+    maps, mxu, gdt, c, r, rescale, levels = CORR_CASES[case]
     f1, f2, coords, g = _corr_inputs(c, r, c + r, levels)
-    gj, gt = jnp.dtype(gdt), _t(g).to(getattr(torch, gdt))
     tdt = getattr(torch, maps)
-    t1 = _t(f1).to(tdt)
-    pyr = corr.build_feature_pyramid(_t(f2).to(tdt), levels)
+    return (_t(f1).to(tdt), corr.build_feature_pyramid(_t(f2).to(tdt), levels),
+            coords, _t(g).to(getattr(torch, gdt)))
+
+
+def jax_corr_bwd(case, dtype):
+    """``jax.vjp`` of ``windowed_correlation_pallas_fused`` (its custom VJP
+    runs the Pallas ``_bwd_kernel`` in the interpreter) for
+    CORR_CASES[case], on its operands with the maps in ``dtype``: (df1,
+    df2_0, ...)."""
+    maps, mxu, gdt, c, r, rescale, levels = CORR_CASES[case]
+    t1, pyr, coords, g = _corr_operands(case)
+    gj = jnp.dtype(gdt)
 
     def vjp(a, p, cc, gg):
         _, back = jax.vjp(lambda a, p: windowed_correlation_pallas_fused(
@@ -186,26 +188,47 @@ def test_bf16_corr_backward_matches_pallas_interpret(maps, mxu, gdt, c, r,
             rescale=rescale), a, p)
         return back(gg)
 
+    want = _compiled(vjp, jnp.asarray(_np(t1), dtype),
+                     [jnp.asarray(_np(x), dtype) for x in pyr], coords,
+                     jnp.asarray(_np(g), gj))
+    return (want[0], *want[1])
+
+
+@pytest.mark.parametrize("maps,mxu,gdt,c,r,rescale,levels", CORR_CASES)
+def test_bf16_corr_backward_matches_pallas_interpret(maps, mxu, gdt, c, r,
+                                                     rescale, levels):
+    """``windowed_correlation_bwd_plain`` with the bf16 kernel's dtypes
+    against ``jax.vjp`` of ``windowed_correlation_pallas_fused`` (its
+    custom VJP runs the Pallas ``_bwd_kernel`` in the interpreter;
+    ``jax_corr_bwd``, committed by ``tests/mixed_goldens.py``) with the
+    same ``mxu_dtype``, the windows and cotangent in ``gdt``: df1 and each
+    df2 in the maps' dtype within one ``EPS`` of max|JAX| (bfloat16) or
+    ``SUM_REL`` (float32); on float32 copies of the maps, the float32 sums
+    within ``SUM_REL``, and the plain version at the other ``mxu_dtype``
+    further off than that."""
+    import mixed_goldens
+
+    case = CORR_CASES.index((maps, mxu, gdt, c, r, rescale, levels))
+    t1, pyr, coords, gt = _corr_operands(case)
+
     def check(a, p, bar, dtype):
-        want = _compiled(vjp, jnp.asarray(_np(a), dtype),
-                         [jnp.asarray(_np(x), dtype) for x in p], coords,
-                         jnp.asarray(g, gj))
-        want = (want[0], *want[1])
+        want = [mixed_goldens.array(f"corr_bwd.{case}.{dtype}.{k}", dtype)
+                for k in range(levels + 1)]
         other = "float32" if mxu == "bfloat16" else "bfloat16"
         got, ctrl = (corr_cuda.windowed_correlation_bwd_plain(
             a, p, _t(coords), gt, r, rescale=rescale, mxu_dtype=m)
             for m in (mxu, other))
         assert len(got[1]) == len(want) - 1 == levels
         for x, y, z in zip((got[0], *got[1]), want, (ctrl[0], *ctrl[1])):
-            assert x.dtype == a.dtype and y.dtype == dtype
+            assert x.dtype == a.dtype
             top = float(np.abs(_np(y)).max())
             assert _dist(x, y) <= bar * top, (_dist(x, y) / top, bar)
-            if dtype == jnp.float32:
+            if dtype == "float32":
                 assert _dist(z, y) > SUM_REL * top, _dist(z, y) / top
 
     if maps == "bfloat16":
-        check(t1, pyr, EPS, jnp.bfloat16)
-    check(t1.float(), [p.float() for p in pyr], SUM_REL, jnp.float32)
+        check(t1, pyr, EPS, "bfloat16")
+    check(t1.float(), [p.float() for p in pyr], SUM_REL, "float32")
 
 
 def test_bf16_corr_backward_wrapper_refuses_what_it_was_not_built_for():
@@ -366,8 +389,9 @@ def _cancelled_by_norm(name: str) -> bool:
 @pytest.fixture(scope="module")
 def mixed_steps():
     """JAX's mixed step (rounding at every bfloat16 operation), the
-    metrics of its mixed step as XLA on the CPU compiles it by default, the
-    float32 step, and the port's mixed step (through ``make_train_step``),
+    metrics of its mixed step as XLA on the CPU compiles it by default
+    (committed in ``mixed_goldens.GOLDEN``, "step"), the float32 step, and
+    the port's mixed step (through ``make_train_step``),
     from the fixture weights on one batch. The float32 step is the port's:
     ``tests/test_torch_train_step.py`` holds it to JAX's (loss 1e-5,
     gradient norm 1e-4 relative, every parameter after AdamW within lr/8),
@@ -377,8 +401,10 @@ def mixed_steps():
     batch = _batch()
     with np.load(WEIGHTS) as z:
         npz = {k: np.asarray(z[k], np.float32) for k in z.files}
+    import mixed_goldens
+
     mixed = _jax_step(npz, batch, True)
-    default = _jax_step(npz, batch, True, excess=True)[0]
+    default = mixed_goldens.load()["step"]
     runs = []
     for policy in (True, False):
         model = RAFT(RAFTConfig(mixed_precision=policy))
@@ -535,13 +561,19 @@ def test_bf16_corr_bwd_kernel_matches_plain_on_card(cuda, b, h, w, c, r, maps,
                                                     mxu, budget, monkeypatch):
     """The bf16 corr backward against its plain version (4 levels) at the
     chairs and Sintel shapes and RAFT-small's r=3, C=128, each path forced
-    (budget 0: the warp path; 10**8: the shared tile), with a bfloat16
-    cotangent: df1 and each df2 in bfloat16 within one ``EPS`` of
-    max|plain|; the float32 sums (float32 gradients, the plain version on
-    float32 copies of the maps) within ``CARD_SUM_BARS`` (largest
-    difference, 2-norm), and the plain version at the other ``mxu_dtype``
-    further off than the 2-norm bar (chip_smoke.py's CORR_BWD_BF16_BARS,
-    which says where they come from)."""
+    (budget 0: the warp path; 10**8: the shared tile), with rescale 1 and 0
+    and a bfloat16 and a float32 cotangent: df1 and each df2 in the maps'
+    dtype within one ``EPS`` of max|plain| (bfloat16 maps) or the largest
+    difference of ``CARD_SUM_BARS``; the float32 sums (float32 gradients,
+    the plain version on float32 copies of the maps) within
+    ``CARD_SUM_BARS`` (largest difference, 2-norm), and the plain version at
+    the other ``mxu_dtype`` further off than the 2-norm bar (chip_smoke.py's
+    CORR_BWD_BF16_BARS, which says where they come from). With rescale 1
+    the tile's boxes (chip_smoke.box_pixels) include one of a single
+    64-pixel chunk, one of more chunks than the ring's two stages, and a
+    ragged last chunk."""
+    import chip_smoke
+
     monkeypatch.setattr(corr_cuda, "TILE_BUDGET", budget)
     rng = np.random.default_rng(c + r + b)
     tdt = getattr(torch, maps)
@@ -551,31 +583,42 @@ def test_bf16_corr_bwd_kernel_matches_plain_on_card(cuda, b, h, w, c, r, maps,
     flow = rng.uniform(-4, 4, (b, 1, 1, 2)) + rng.uniform(-1, 1, (b, h, w, 2))
     grid = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)[None]
     coords = _t(grid + flow).to(cuda).contiguous()
-    g = _t(rng.standard_normal((b, h, w, 4 * (2 * r + 1) ** 2))).to(cuda, BF16)
-    before = corr_cuda.bwd_bf16_launches
-    got = corr_cuda.windowed_correlation_bwd_bf16_cuda(f1, pyr, coords, g, r,
-                                                       mxu_dtype=mxu)
-    got32 = corr_cuda.windowed_correlation_bwd_bf16_cuda(
-        f1, pyr, coords, g, r, mxu_dtype=mxu, out_dtype=torch.float32)
-    want = corr_cuda.windowed_correlation_bwd_plain(f1, pyr, coords, g, r,
-                                                    mxu_dtype=mxu)
+    g32 = _t(rng.standard_normal((b, h, w, 4 * (2 * r + 1) ** 2))).to(cuda)
     f1f, pyrf = f1.float(), [p.float() for p in pyr]
-    want32, ctrl32 = (corr_cuda.windowed_correlation_bwd_plain(
-        f1f, pyrf, coords, g, r, mxu_dtype=m)
-        for m in (mxu, "float32" if mxu == "bfloat16" else "bfloat16"))
-    assert corr_cuda.bwd_bf16_launches == before + 2
+    other = "float32" if mxu == "bfloat16" else "bfloat16"
     largest, norm = CARD_SUM_BARS[(maps, mxu)]
-    for a, b_ in zip((got[0], *got[1]), (want[0], *want[1])):
-        assert a.dtype == b_.dtype == tdt
-        bar = (EPS if maps == "bfloat16" else largest) * float(
-            b_.float().abs().max())
-        assert float((a.float() - b_.float()).abs().max()) <= bar
-    for a, b_, z in zip((got32[0], *got32[1]), (want32[0], *want32[1]),
-                        (ctrl32[0], *ctrl32[1])):
-        assert a.dtype == torch.float32
-        assert float((a - b_).abs().max() / b_.abs().max()) <= largest
-        assert float((a - b_).norm() / b_.norm()) <= norm
-        assert float((z - b_).norm() / b_.norm()) > norm
+    nb = chip_smoke.box_pixels(torch, pyr, coords, r)
+    nb = nb[nb > 0]
+    assert (nb <= 64).any() and (nb > 128).any() and (nb % 64 > 0).any()
+    for rescale in (True, False):
+        for g in (g32.to(BF16), g32):
+            before = corr_cuda.bwd_bf16_launches
+            got = corr_cuda.windowed_correlation_bwd_bf16_cuda(
+                f1, pyr, coords, g, r, rescale=rescale, mxu_dtype=mxu)
+            got32 = corr_cuda.windowed_correlation_bwd_bf16_cuda(
+                f1, pyr, coords, g, r, rescale=rescale, mxu_dtype=mxu,
+                out_dtype=torch.float32)
+            want = corr_cuda.windowed_correlation_bwd_plain(
+                f1, pyr, coords, g, r, rescale=rescale, mxu_dtype=mxu)
+            want32, ctrl32 = (corr_cuda.windowed_correlation_bwd_plain(
+                f1f, pyrf, coords, g, r, rescale=rescale, mxu_dtype=m)
+                for m in (mxu, other))
+            assert corr_cuda.bwd_bf16_launches == before + 2
+            for a, b_ in zip((got[0], *got[1]), (want[0], *want[1])):
+                assert a.dtype == b_.dtype == tdt
+                bar = (EPS if maps == "bfloat16" else largest) * float(
+                    b_.float().abs().max())
+                assert float((a.float() - b_.float()).abs().max()) <= bar
+            for a, b_, z in zip((got32[0], *got32[1]), (want32[0], *want32[1]),
+                                (ctrl32[0], *ctrl32[1])):
+                assert a.dtype == torch.float32
+                top = float(b_.abs().max())
+                if top == 0.0:  # a level no centre reaches (rescale 0)
+                    assert float(a.abs().max()) == 0.0
+                    continue
+                assert float((a - b_).abs().max()) / top <= largest
+                assert float((a - b_).norm() / b_.norm()) <= norm
+                assert float((z - b_).norm() / b_.norm()) > norm
 
 
 @pytest.mark.cuda
