@@ -1261,7 +1261,8 @@ def sparse_train_full_size(torch, pkg, label, batch, enc, warmup, timed):
 # kernel or one of the profiler ranges around its launch.
 TRAIN_SPLIT = (
     ("forward kernels (corr_fwd, update_step)",
-     ("corr_fwd_kernel", "update_step_kernel", "update_step_bf16_kernel")),
+     ("corr_fwd_kernel", "corr_fwd_bf16_kernel", "update_step_kernel",
+      "update_step_bf16_kernel")),
     ("step kernel's plain recompute (backward)", ("RecomputeFnBackward",)),
     ("corr_bwd (backward)", ("WindowedCorrelationFnBackward",)),
     ("optimizer, clipping and guard",
@@ -1272,8 +1273,8 @@ TRAIN_SPLIT = (
 DEFAULT_SPLIT = "heads, upsampling, loss (forward)"
 # The same time by kernel name alone, a check on the split above.
 NAME_SPLIT = (("corr_fwd, update_step (forward kernels)",
-               ("corr_fwd_kernel", "update_step_kernel",
-                "update_step_bf16_kernel")),
+               ("corr_fwd_kernel", "corr_fwd_bf16_kernel",
+                "update_step_kernel", "update_step_bf16_kernel")),
               ("corr_bwd", ("corr_bwd_kernel", "corr_bwd_bf16_kernel")),
               ("cuDNN convolutions and GEMMs",
                ("xmma", "cudnn", "conv", "gemm", "wgrad", "dgrad")),
@@ -2246,18 +2247,21 @@ def bf16_step_work(net, inp, corr, flow, packed, convs):
 def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
                        err):
     """The bf16 form of corr_fwd against its plain version at the Sintel
-    (B=1) and chairs (B=8) lookup shapes, C=256, on coherent and incoherent
-    flows, with each path forced, for bfloat16 and float32 maps and
-    windows: bfloat16 both is the mixed policy's lookup, float32 both
-    corr_mxu_dtype="bfloat16" alone. Updates ``err``."""
+    (B=1) and chairs (B=8) lookup shapes, C=256, and RAFT-small's lookup
+    at Sintel (C=128, r=3), on coherent and incoherent flows, with each
+    path forced, for bfloat16 and float32 maps and windows: bfloat16 both
+    is the mixed policy's lookup, float32 both corr_mxu_dtype="bfloat16"
+    alone. Updates ``err``."""
     default = corr_cuda.TILE_BUDGET
+    cases = [(label, b, h, w, flows, 256, radius)
+             for label, b, h, w, flows in lookup_cases(feat) if label != "golden"]
+    h, w = feat["sintel"]
+    cases.append(("sintel", 1, h, w, CORR_FLOWS["sintel"], SMALL_C, 3))
     try:
-        for label, b, h, w, flows in lookup_cases(feat):
-            if label == "golden":
-                continue
+        for label, b, h, w, flows, c, r in cases:
             for flow, max_px in flows.items():
                 f1, pyr, coords = corr_inputs(torch, sampling, corr, rng, h,
-                                              w, flow=flow, b=b,
+                                              w, c=c, flow=flow, b=b,
                                               max_px=max_px)
                 for maps, out in (("bfloat16", "bfloat16"),
                                   ("float32", "float32")):
@@ -2265,7 +2269,7 @@ def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
                     f1m, pyrm = f1.to(dt), tuple(p.to(dt) for p in pyr)
                     with torch.inference_mode():
                         want = corr_cuda.windowed_correlation_fused_plain(
-                            f1m, pyrm, coords, radius, mxu_dtype="bfloat16",
+                            f1m, pyrm, coords, r, mxu_dtype="bfloat16",
                             out_dtype=odt).float()
                     top = float(want.abs().max())
                     bar = (BF16_EPS if out == "bfloat16" else TOL) * max(
@@ -2276,21 +2280,21 @@ def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
                         corr_cuda.reset_path_counts()
                         with torch.inference_mode():
                             got = corr_cuda.windowed_correlation_bf16_cuda(
-                                f1m, pyrm, coords, radius, out_dtype=odt)
+                                f1m, pyrm, coords, r, out_dtype=odt)
                         torch.cuda.synchronize()
                         counts = corr_cuda.path_counts()["fwd"]
                         d = float((got.float() - want).abs().max())
                         err["corr_fwd_bf16"] = max(err["corr_fwd_bf16"], d)
-                        print(f"corr_fwd_bf16 {label} B={b} {h}x{w} C=256 "
-                              f"r={radius} {flow}, {maps} maps, {out} "
+                        print(f"corr_fwd_bf16 {label} B={b} {h}x{w} C={c} "
+                              f"r={r} {flow}, {maps} maps, {out} "
                               f"windows, {path} path forced [shared "
                               f"{100 * shared_share(counts):.1f}%]: "
                               f"max|kernel - plain| = {d:.3e}, max|plain| "
                               f"{top:.3g} (bar {bar:.3g})")
                         if not d <= bar or got.dtype != odt:
                             fail(f"corr_fwd_bf16 disagrees with its plain "
-                                 f"version at {label} {flow}, {maps} maps, "
-                                 f"{path} path: {d:.3e}")
+                                 f"version at {label} C={c} r={r} {flow}, "
+                                 f"{maps} maps, {path} path: {d:.3e}")
                         forced = {"warp": 1, "shared": 0}[path]
                         if not counts[forced] > counts[1 - forced]:
                             fail(f"the {path} path was not taken: {counts}")
@@ -2439,6 +2443,14 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
             fail(f"{lib} has no tensor-core BF16 MMA in its SASS")
         if lib == "update_step" and widest_hgmma_n(ops) <= 64:
             fail(f"{lib}'s bf16 tile has no warpgroup MMA wider than 64x64x16")
+    # the bf16 lookup multiplies in bf16 only, and keeps its registers
+    tf32 = tensor_core_tf32_ops(cuobjdump, paths["corr_fwd_bf16"])
+    regs, spills = ptxas_usage(paths["corr_fwd_bf16"])
+    print(f"  corr_fwd_bf16 SASS, tensor-core TF32 MMAs: {tf32}; ptxas: "
+          f"{len(regs)} kernels, registers {min(regs)}-{max(regs)} a thread, "
+          f"spill bytes {sum(spills)}")
+    if tf32 or sum(spills):
+        fail("corr_fwd_bf16 must hold no TF32 MMA and spill nothing")
     corr_cuda, step_cuda = pkg.corr_cuda, pkg.step_cuda
     bf16_lookup_checks(torch, corr_cuda, pkg.corr, pkg.sampling, rng, radius,
                        feat, err)
@@ -2498,33 +2510,54 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
 
     # the two forms timed on the Sintel shape: the corr form on coherent
     # and incoherent flows (bfloat16 maps and windows; the row's numbers
-    # are the incoherent input's, as the float32 row's), the step at both
-    # depths beside cuDNN's bf16 convolutions of the same iteration
+    # are the incoherent input's, as the float32 row's), and on coherent
+    # ones at the chairs shape (B=8) and at RAFT-small's lookup (C=128,
+    # r=3); the step at both depths beside cuDNN's bf16 convolutions of the
+    # same iteration
     rows = []
     corr_by = {}
-    for flow_kind in ("incoherent", "coherent"):
-        f1, pyr, coords = corr_inputs(torch, pkg.sampling, pkg.corr, rng, h,
-                                      w, flow=flow_kind)
+    chairs = (TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8)
+    for key, (b, hh, ww), c, r, flow_kind, max_px in (
+            ("incoherent", (1, h, w), 256, radius, "incoherent",
+             CORR_FLOWS["sintel"]["incoherent"]),
+            ("coherent", (1, h, w), 256, radius, "coherent",
+             CORR_FLOWS["sintel"]["coherent"]),
+            ("chairs coherent", chairs, 256, radius, "coherent",
+             CORR_FLOWS["chairs"]["coherent"]),
+            ("r=3 coherent", (1, h, w), SMALL_C, 3, "coherent",
+             CORR_FLOWS["sintel"]["coherent"])):
+        f1, pyr, coords = corr_inputs(torch, pkg.sampling, pkg.corr, rng, hh,
+                                      ww, c=c, flow=flow_kind, b=b,
+                                      max_px=max_px)
         f1, pyr = f1.to(bf), tuple(p.to(bf) for p in pyr)
         corr_cuda.reset_path_counts()
         with torch.inference_mode():
-            run = (lambda: corr_cuda.windowed_correlation_bf16_cuda(
-                f1, pyr, coords, radius, out_dtype=bf))
-            run()
+            run = (lambda f1=f1, pyr=pyr, coords=coords, r=r: (
+                corr_cuda.windowed_correlation_bf16_cuda(
+                    f1, pyr, coords, r, out_dtype=bf)))
+            got = run()
             share = shared_share(corr_cuda.path_counts()["fwd"])
-            work = bf16_corr_work(torch, f1, pyr, coords, radius)
+            want = corr_cuda.windowed_correlation_fused_plain(
+                f1, pyr, coords, r, mxu_dtype="bfloat16", out_dtype=bf)
+            d = float((got.float() - want.float()).abs().max())
+            bar = BF16_EPS * max(1.0, float(want.float().abs().max()))
+            err["corr_fwd_bf16"] = max(err["corr_fwd_bf16"], d)
+            if not d <= bar:
+                fail(f"corr_fwd_bf16 disagrees with its plain version at "
+                     f"its timed input {key}: {d:.3e}")
+            work = bf16_corr_work(torch, f1, pyr, coords, r)
             bound_ms, bound_by = bound(*work, peak=BF16_FLOPS)
-            corr_by[flow_kind] = {
+            corr_by[key] = {
                 "ms": time_ms(torch, run), "ms_q": queued_ms(torch, run),
                 "plain_ms": time_ms(torch, lambda: (
                     corr_cuda.windowed_correlation_fused_plain(
-                        f1, pyr, coords, radius, mxu_dtype="bfloat16",
+                        f1, pyr, coords, r, mxu_dtype="bfloat16",
                         out_dtype=bf)), n=10),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "shared_share": share,
-                "shape": f"B=1 {h}x{w} C=256 L=4 r={radius}, bfloat16 maps "
-                         f"and windows, flows up to "
-                         f"{CORR_FLOWS['sintel'][flow_kind]:g} feature px"}
+                "shape": f"B={b} {hh}x{ww} C={c} L=4 r={r}, bfloat16 maps "
+                         f"and windows, {flow_kind} flows up to {max_px:g} "
+                         f"feature px"}
     main_row = corr_by["incoherent"]
     rows.append({
         "name": "corr_fwd_bf16", "route": "cuda",
@@ -2537,7 +2570,8 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
         "bound_by": main_row["bound_by"], "library_ms": None,
         "ms_q": main_row["ms_q"], "shape": main_row["shape"],
         "by_input": corr_by, "shared_share_serve": shares["fwd"],
-        "sass_bf16_mma": sass["corr_fwd_bf16"]})
+        "sass_bf16_mma": sass["corr_fwd_bf16"], "registers": [min(regs), max(regs)],
+        "spill_bytes": sum(spills)})
     lib_inputs = tuple(nchw(t) for t in sintel_inputs)
     step = {}
     for depth in ("mg", "mgf"):
@@ -2591,10 +2625,10 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
               f"(cuDNN bf16), {d['tflops']:.2f} TFLOP/s")
     print_tile_geometry("update_step_bf16 'mgf'", geo)
     for key, row in corr_by.items():
-        print(f"corr_fwd_bf16 sintel {key} ({row['shape']}): {row['ms']:.4f} "
-              f"ms a launch, queued {row['ms_q']:.4f} ms, bound "
+        print(f"corr_fwd_bf16 {key} ({row['shape']}): {row['ms']:.4f} "
+              f"ms a launch (time_ms), queued {row['ms_q']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); shared path on "
-              f"{100 * row['shared_share']:.1f}% of blocks; plain "
+              f"{100 * row['shared_share']:.1f}% of (tile, level)s; plain "
               f"{row['plain_ms']:.4f} ms")
     rows[0]["goldens"] = goldens
     rows[0]["ms_per_pair_mixed"] = ms
@@ -2881,7 +2915,7 @@ def mixed_small_phase(torch, pkg, padder, frames, counters, f32_times):
           f"{f32:.2f} ms/pair in this run")
     check_launches(launches, SERVE_PAIRS, {"corr_fwd_bf16": SINTEL_ITERS})
     profile_pair(torch, small, *frames[1], label="profile small mixed",
-                 per_iteration="corr_fwd_kernel")
+                 per_iteration="corr_fwd_bf16_kernel")
     return {"goldens": out, "ms_per_pair": ms, "ms_per_pair_f32": f32,
             "launches_per_pair": launches["corr_fwd_bf16"] / SERVE_PAIRS}
 

@@ -64,8 +64,8 @@
 // - Sintel's 55 x 128 queries make only 112 tiles for 132 SMs: the level is
 //   a grid dimension (448 blocks).
 //
-// The bf16 form (mxu_dtype = "bfloat16") is corr_fwd_bf16.cu, on the same
-// shell.
+// The bf16 form (mxu_dtype = "bfloat16") is corr_fwd_bf16.cu, a kernel of
+// its own on the same tile, box and path rule.
 
 #include <cuda_runtime.h>
 

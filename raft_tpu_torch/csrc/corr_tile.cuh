@@ -18,12 +18,12 @@
 // query's neighbours itself. Each block adds one to path_counts[0] (shared
 // path) or path_counts[1] (warp path).
 //
-// The forward's kernel, corr_fwd_kernel below, is one shell over two forms
-// of its paths: the float32 form (corr_fwd.cu) and the bf16 form
-// (corr_fwd_bf16.cu), each its own translation unit so that both build at
-// once. The backward's, corr_bwd_kernel, is the float32 form's
-// (corr_bwd.cu); the bf16 forms (corr_bwd_bf16.cu) run a kernel of their
-// own on this tile, box, path rule and warp path (corr_tile_bf16.cuh).
+// The forward's kernel, corr_fwd_kernel below, is the float32 form's shell
+// (corr_fwd.cu); the bf16 form (corr_fwd_bf16.cu) runs a kernel of its own
+// on this tile, box and path rule. The backward's, corr_bwd_kernel, is the
+// float32 form's (corr_bwd.cu); the bf16 forms (corr_bwd_bf16.cu) run a
+// kernel of their own on this tile, box, path rule and warp path
+// (corr_tile_bf16.cuh).
 //
 // Products are mma.sync m16n8k8 in 3xTF32: both operands are activations,
 // split in registers after their shared-memory load (split_tf32 of
@@ -137,9 +137,9 @@ __device__ void load_tile(TileQueries& t, const float* __restrict__ coords, int 
   __syncthreads();
 }
 
-// The forward's shared path (corr_fwd.cu, and its bf16 form in
-// corr_fwd_bf16.cu): the box in chunks of kNC pixels, C in stages of kKC
-// channels, a staged float row kLdk floats apart (conflict-free fragments).
+// The forward's shared path (corr_fwd.cu): the box in chunks of kNC pixels,
+// C in stages of kKC channels, a staged float row kLdk floats apart
+// (conflict-free fragments).
 constexpr int kNC = 128;
 constexpr int kKC = 32;
 constexpr int kLdk = kKC + 4;

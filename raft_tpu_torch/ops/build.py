@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fns: dict = {}    # (name, symbol) -> its bound function
 
 
 def nvcc() -> str:
@@ -108,13 +109,18 @@ def bind(name: str, symbol: str, argtypes):
     """The C function ``symbol`` of ``csrc/<name>.cu`` (built and loaded on
     first use) with its argument types set, returning a C int (the kernels
     return a ``cudaError_t``). Pointers must be ``ctypes.c_void_p``, or
-    ctypes cuts them to 32 bits."""
+    ctypes cuts them to 32 bits. Bound once: later calls return the same
+    function without taking the lock."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build((name,))[name])
         fn = getattr(_libs[name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
         return fn
 
 

@@ -32,7 +32,10 @@ kernel's ``mxu_dtype="bfloat16"``) takes float32 or bfloat16 feature maps,
 multiplies bfloat16 operands with float32 sums (a float32 map is rounded
 to bfloat16 in the kernel; a bfloat16 one is taken as it is, with either
 ``mxu_dtype``, since its products are exact in either form) and emits the
-windows in the maps' dtype, as the port's lookup asks for them. The
+windows in the maps' dtype, as the port's lookup asks for them. Its
+kernel is its own (the same tile, box and path rule; each block stages
+its tile's F1 once and the box in chunks over the whole C,
+``tests/test_torch_corr_fwd_bf16_tile.py``). The
 backward's (``windowed_correlation_bwd_bf16_cuda``,
 ``csrc/corr_bwd_bf16.cu``) takes bfloat16 maps with ``mxu_dtype``
 "float32" or "bfloat16", or float32 maps with "bfloat16", and a float32 or
@@ -47,6 +50,7 @@ their launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -284,7 +288,9 @@ def _padded(levels) -> list:
 
 
 def _scale_div(C: int, scale: bool) -> float:
-    return float(torch.sqrt(torch.tensor(float(C)))) if scale else 1.0
+    """sqrt(C) rounded once to float32, or 1: for every C the kernels take
+    the float32 that the plain versions divide by (torch.sqrt)."""
+    return ctypes.c_float(math.sqrt(C)).value if scale else 1.0
 
 
 def windowed_correlation_cuda(fmap1, pyramid2, coords, radius: int,
@@ -329,7 +335,8 @@ def windowed_correlation_bf16_cuda(fmap1, pyramid2, coords, radius: int,
                                    ) -> torch.Tensor:
     """Launch the bf16 form, ``csrc/corr_fwd_bf16.cu``, on the current
     stream: bfloat16 products (m16n8k16 tensor-core MMAs on the shared
-    path) with float32 sums, the windows emitted in ``out_dtype``.
+    path) with float32 sums, the windows emitted in ``out_dtype`` (the
+    bilinear weights, then 1/sqrt(C), in float32).
 
     ``fmap1`` and the levels all float32 (rounded to bfloat16 in the
     kernel) or all bfloat16; ``out_dtype`` the maps' dtype; C in

@@ -98,9 +98,34 @@ RAFT-small's lookup there (C=128, r=3) on coherent ones, in copies under
   path's phases summed over the blocks (thread 0's clock, barriers
   included), printed as cycles a shared-path block.
 
+With ``fwd_bf16`` it times the bf16 forward, ``corr_fwd_bf16``, in its two
+operand routes (bfloat16 maps and windows, the mixed policy's; float32
+maps and windows, ``corr_mxu_dtype="bfloat16"`` alone) by the queued timer
+and the host's time a call (``host_us``: calls queued behind a sleep), at
+Sintel (B=1, 55x128, C=256, r=4) and the chairs train shape (B=8, 46x62)
+on coherent and incoherent flows and at RAFT-small's lookup (Sintel,
+C=128, r=3) on coherent ones, in copies under
+``build/corr_tile_bench/fwd_bf16-<variant>/``:
+
+- ``tile``: the kernel as it is, each route held against the plain version
+  (chip_smoke's bars, as every exact variant), and beside it on the same
+  inputs ``corr_fwd``, ``corr_bwd`` and ``corr_bwd_bf16`` (bf16 maps, mxu
+  "float32"), as for the parent;
+- ``no_copies``: the ring's chunks copied for the first chunk only;
+- ``no_products``: the tensor-core products replaced by one xor-add each;
+- ``no_epilogue``: no dots into S (one compare keeps the sums live), no
+  windows into O and no row stores;
+- ``levels2``, ``levels4``: the grid with one block a tile over two of its
+  levels or over all four (one an SM, O apart; all four: a tile row's
+  whole rows one run), in place of one a (tile, level) (two an SM, O over
+  the idle ring);
+- ``stamps``: the kernel as it is with ``clock64()`` stamps of its phases
+  summed over the blocks (thread 0's clock, barriers included), printed as
+  cycles a block.
+
 Run from the repository root:
 
-    python3 scripts/corr_tile_bench.py [corr|msda|bwd_bf16] [--parent build/parent]
+    python3 scripts/corr_tile_bench.py [corr|msda|bwd_bf16|fwd_bf16] [--parent build/parent]
         [--variants tile,stamps]
 """
 
@@ -112,6 +137,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -276,7 +302,42 @@ BWD_BF16_VARIANTS = {
                + [_stamped(*at) for at in _CHUNK_AT],
                True),
 }
-TABLES = {"corr": VARIANTS, "msda": MSDA_VARIANTS, "bwd_bf16": BWD_BF16_VARIANTS}
+# the bf16 forward (csrc/corr_fwd_bf16.cu) with one part of its work
+# changed or taken out, or another grid: variant -> (edits, exact)
+_FWD_HDR = "corr_fwd_bf16.cu"
+_FWD_MMAS = ("mma_bf16(acc[2 * np], a[s], b);", "mma_bf16(acc[2 * np + 1], a[s], b + 2);")
+_FWD_FETCH = ("          pieces[i].fetch(dst + row * LD + col, f2 + (ok ? ((long long)y * w2 + x) * C "
+              ": 0), ok);")
+_FWD_LEVELS = "constexpr int kLevelsPerBlock = 1;"
+# the stamps variant: block-summed clock64() cycles of the kernel's phases
+# (thread 0's clock, barriers included), in path_counts[4..12], the blocks
+# in path_counts[15]
+FWD_STAMPS = ("set-up: F1 issued, centres and boxes", "first chunks issued", "wait and barrier",
+              "next chunk issued", "products", "dots into S (f32 maps: rows stored)",
+              "level windows into O", "warp path (dots and windows)", "row stores")
+FWD_BF16_VARIANTS = {
+    "tile": ([], True),
+    "no_copies": ([(_FWD_HDR, _FWD_FETCH, "        if (c_li + c_n0 == 0)\n  " + _FWD_FETCH)],
+                  False),
+    "no_products": ([(_FWD_HDR, mma, mma[len("mma_bf16("):mma.index("],") + 1]
+                      + "[0] += __uint_as_float(a[s][0] ^ b[" + ("2" if "b + 2" in mma else "0")
+                      + "]);") for mma in _FWD_MMAS], False),
+    "no_epilogue": ([(_FWD_HDR, "              if ((unsigned)i < D && (unsigned)j < D) {",
+                      "              if (acc[nt][2 * e2 + e1] == 1.2345e-30f && i == j) {"),
+                     (_FWD_HDR, "      if (t[li].q[qi] >= 0) {\n        window_column<R>(",
+                      "      if (false) {\n        window_column<R>("),
+                     (_FWD_HDR, "      M* g = out + O.out_first(u);",
+                      "      continue;\n      M* g = out + O.out_first(u);")],
+                    False),
+    "levels2": ([(_FWD_HDR, _FWD_LEVELS, "constexpr int kLevelsPerBlock = 2;")], True),
+    "levels4": ([(_FWD_HDR, _FWD_LEVELS, "constexpr int kLevelsPerBlock = 4;")], True),
+    "stamps": ([("../ops/corr_cuda.py", "torch.zeros(4, dtype=torch.int64",
+                 "torch.zeros(16, dtype=torch.int64"),
+                (_FWD_HDR, "constexpr bool kStamps = false;", "constexpr bool kStamps = true;")],
+               True),
+}
+TABLES = {"corr": VARIANTS, "msda": MSDA_VARIANTS, "bwd_bf16": BWD_BF16_VARIANTS,
+          "fwd_bf16": FWD_BF16_VARIANTS}
 
 
 def variant_tree(kernel, name):
@@ -499,6 +560,120 @@ def run_bwd_bf16_variant(name):
                          "at " + "; ".join(problems))
 
 
+def fwd_bf16_cases(torch, smoke, corr, sampling):
+    """(label, radius, f1, pyramid, coords) of every timed bf16 forward:
+    Sintel (B=1, 55x128, C=256, r=4) and the chairs train shape (B=8,
+    46x62) on coherent and incoherent flows, and RAFT-small's lookup at
+    Sintel (C=128, r=3) on coherent ones; float32 maps."""
+    rng = np.random.default_rng(0)
+    chairs = (smoke.TRAIN_B, smoke.TRAIN_HW[0] // 8, smoke.TRAIN_HW[1] // 8)
+    flows = smoke.CORR_FLOWS
+    for label, (b, h, w), c, r, flow, max_px in (
+            ("sintel", (1, 55, 128), 256, 4, "coherent", flows["sintel"]["coherent"]),
+            ("sintel", (1, 55, 128), 256, 4, "incoherent", flows["sintel"]["incoherent"]),
+            ("chairs", chairs, 256, 4, "coherent", flows["chairs"]["coherent"]),
+            ("chairs", chairs, 256, 4, "incoherent", flows["chairs"]["incoherent"]),
+            ("sintel r=3", (1, 55, 128), smoke.SMALL_C, 3, "coherent",
+             flows["sintel"]["coherent"])):
+        f1, pyr, coords = smoke.corr_inputs(torch, sampling, corr, rng, h, w, c=c, flow=flow,
+                                            b=b, max_px=max_px)
+        yield f"{label} {flow} B={b} {h}x{w} C={c} r={r}", r, f1, pyr, coords
+
+
+def host_us(torch, smoke, fn, n=30, repeats=5):
+    """The host's time a call of ``fn`` in microseconds: ``n`` calls queued
+    behind a sleep on the stream, so that none waits for the card; the
+    median of ``repeats`` such runs."""
+    for _ in range(3):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(smoke.QUEUE_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    return sorted(runs)[repeats // 2]
+
+
+def run_fwd_bf16_variant(name):
+    """Time variant ``name`` of the bf16 forward (whose tree is on sys.path)
+    in its two operand routes (bfloat16 maps and windows; float32 maps and
+    windows), queued, with the host's time a call; an exact variant (and
+    the parent) checked against the plain version at chip_smoke's bars (1
+    bf16 eps of max(1, max|plain|) for bfloat16 windows, TOL for float32
+    ones), beside corr_fwd, corr_bwd and corr_bwd_bf16 on the same
+    inputs."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("corr_tile_bench: no CUDA device")
+    smoke = load_smoke()
+    from raft_tpu_torch.models import corr
+    from raft_tpu_torch.ops import build, corr_cuda, sampling
+
+    exact = FWD_BF16_VARIANTS.get(name, ((), True))[1]
+    beside = name in ("tile", "parent")   # the other corr kernels timed too
+    print(smoke.card_line())
+    libs = ("corr_fwd_bf16", "corr_fwd", "corr_bwd", "corr_bwd_bf16") if beside \
+        else ("corr_fwd_bf16",)
+    paths = build.build(libs)
+    for lib, path in paths.items():
+        with open(path + ".log") as f:
+            print(f"{lib}: " + " | ".join(ln.strip() for ln in f
+                                         if "registers" in ln or "spill" in ln))
+    problems = []
+    for label, r, f1, pyr, coords in fwd_bf16_cases(torch, smoke, corr, sampling):
+        for maps in ("bfloat16", "float32"):
+            dt = getattr(torch, maps)
+            f1m, pyrm = f1.to(dt), tuple(p.to(dt) for p in pyr)
+            run = functools.partial(corr_cuda.windowed_correlation_bf16_cuda, f1m, pyrm,
+                                    coords, r, out_dtype=dt)
+            row = {"variant": name, "kernel": "corr_fwd_bf16", "shape": label, "maps": maps}
+            with torch.inference_mode():
+                corr_cuda.reset_path_counts()
+                got = run()
+                counts = corr_cuda._counts(f1.device).tolist()
+                row["blocks"] = counts[0] + counts[1]
+                row["shared_share"] = smoke.shared_share(counts[:2])
+                if exact:
+                    want = corr_cuda.windowed_correlation_fused_plain(
+                        f1m, pyrm, coords, r, mxu_dtype="bfloat16", out_dtype=dt).float()
+                    top = float(want.abs().max())
+                    bar = (smoke.BF16_EPS if maps == "bfloat16" else smoke.TOL) * max(1.0, top)
+                    row.update(err=float((got.float() - want).abs().max()), bar=bar)
+                    if not (row["err"] <= bar and got.dtype == dt):
+                        problems.append(f"{label} {maps}")
+                if name == "stamps":
+                    cycles = counts[4:4 + len(FWD_STAMPS)]
+                    row["cycles_a_block"] = {k: c / max(1, counts[15])
+                                             for k, c in zip(FWD_STAMPS, cycles)}
+                row["ms_q"] = smoke.queued_ms(torch, run)
+                row["host_us"] = host_us(torch, smoke, run)
+            print(json.dumps(row), flush=True)
+        if not beside:
+            continue
+        g = torch.randn(*coords.shape[:3], len(pyr) * (2 * r + 1) ** 2, device="cuda")
+        f1b, pyrb = f1.bfloat16(), tuple(p.bfloat16() for p in pyr)
+        timed = [("corr_fwd", functools.partial(corr_cuda.windowed_correlation_cuda,
+                                                f1, pyr, coords, r)),
+                 ("corr_bwd", functools.partial(corr_cuda.windowed_correlation_bwd_cuda,
+                                                f1, pyr, coords, g, r)),
+                 ("corr_bwd_bf16", functools.partial(
+                     corr_cuda.windowed_correlation_bwd_bf16_cuda, f1b, pyrb, coords,
+                     g.bfloat16(), r, mxu_dtype="float32"))]
+        for kernel, run in timed:
+            with torch.inference_mode():
+                print(json.dumps({"variant": name, "kernel": kernel, "shape": label,
+                                  "ms_q": smoke.queued_ms(torch, run)}), flush=True)
+    print(smoke.card_line())
+    if problems:
+        raise SystemExit("corr_tile_bench: corr_fwd_bf16 disagrees with the plain version "
+                         "at " + "; ".join(problems))
+
+
 def msda_cases(torch, smoke, fewer=False):
     """(label, value, loc, aw, cotangent) of every timed MSDA input; with
     ``fewer`` also the encoder's coherent input cut to a sixth and a 24th
@@ -594,8 +769,8 @@ def run_msda_variant(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", nargs="?", choices=tuple(TABLES), default="corr",
-                    help="the kernels to time: the corr pair (default), the MSDA pair, or "
-                         "the bf16 corr backward")
+                    help="the kernels to time: the corr pair (default), the MSDA pair, "
+                         "the bf16 corr backward or the bf16 corr forward")
     ap.add_argument("--parent", metavar="DIR",
                     help="the parent commit's tree (git archive), whose kernels are "
                          "timed and checked first, on the same inputs")
@@ -605,8 +780,8 @@ def main():
     args = ap.parse_args()
     if args.child:
         sys.path.insert(0, os.path.abspath(args.child[1]))
-        {"corr": run_variant, "msda": run_msda_variant,
-         "bwd_bf16": run_bwd_bf16_variant}[args.kernel](args.child[0])
+        {"corr": run_variant, "msda": run_msda_variant, "bwd_bf16": run_bwd_bf16_variant,
+         "fwd_bf16": run_fwd_bf16_variant}[args.kernel](args.child[0])
         return
     runs = [("parent", args.parent)] if args.parent else []
     names = args.variants.split(",") if args.variants else list(TABLES[args.kernel])
