@@ -20,8 +20,9 @@ pairs (436x1024, iters=32) on the default path and two on the
 ``update_impl="chain"`` path through the port's ``FlowPredictor``, checks
 RAFT-small against its goldens through the corr kernel at radius 3 (corr_fwd
 and corr_bwd are first held against their plain versions at r=3, C=128 on
-both forced paths), serves it five Sintel-size pairs and times its lookup
-(r=3, C=128, 55x128) on coherent and incoherent flows, runs RAFT's serving
+both forced paths, also at its chairs training shape, B=8 46x62), serves
+it five Sintel-size pairs and times its lookup (r=3, C=128, at 55x128 and
+at B=8 46x62) on coherent and incoherent flows, runs RAFT's serving
 entry points on RAFT-large at the Sintel shape (early exit at B=2 at
 bench.py's (0.1, 2) and at a tol where the two samples exit at different
 iterations, ``iters_used`` against the plain run's update norms and each
@@ -88,7 +89,7 @@ pyramid stored in bfloat16) against the JAX package's own aggregate
 (``SMALL_MIXED_GT_CPU``), five Sintel pairs beside float32 RAFT-small's.
 RAFT-large training under the policy (phase ``mixed train``): the bf16
 corr backward against its plain version at the chairs (B=8) and Sintel
-shapes (C=256 r=4, C=128 r=3), coherent and incoherent flows, and with
+shapes (each at C=256 r=4 and C=128 r=3), coherent and incoherent flows, and with
 rescale 0, in its three operand combinations (bf16 maps with float32 or
 bf16 products, float32 maps with bf16 products), bf16 and float32
 cotangents, each path forced, its boxes of one chunk, of more chunks than
@@ -103,19 +104,39 @@ update_step_bf16 12 a step), one of them profiled; on the chain (phase
 ``mixed chain train``) a B=2 train step against the plain route and
 seven chairs-size steps beside the step route's (motion_fwd_bf16 and
 sepconv_gru_bf16 12 a step).
+RAFT-small training on its own input pipeline (phase ``small train``): the
+augmentation's host library built with g++ (it must load; the backends
+the augmentor takes are printed), a synthetic FlyingChairs tree of 64
+pairs at 384x512 written to a temporary directory, one RAFT-small train
+step (B=2, 184x248, iters=4) through the kernels against the plain route
+in float32 and under the policy (the float32 model's plain route the
+control), the loader's samples per second alone (``fetch_dataloader``,
+16 batches, no step, over all of them and within epochs, at the host's
+worker count and at 2 and 4 workers; its workers must import neither
+torch nor JAX), then
+seven steps of ``train(TrainConfig(stage="chairs"), RAFTConfig(small=True),
+dataloader=None, data_root=...)`` from ``weights_small.npz`` in float32
+and under ``mixed_precision=True`` (corr_fwd and corr_bwd 12 a step, or
+their bf16 forms; ms per step beside the step alone on one batch, path
+shares, one step of each profiled);
+the tree is removed at the end.
 The last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line; without a CUDA
 card it exits non-zero at once.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2248,7 +2269,7 @@ def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
                        err):
     """The bf16 form of corr_fwd against its plain version at the Sintel
     (B=1) and chairs (B=8) lookup shapes, C=256, and RAFT-small's lookup
-    at Sintel (C=128, r=3), on coherent and incoherent flows, with each
+    (C=128, r=3) at both, on coherent and incoherent flows, with each
     path forced, for bfloat16 and float32 maps and windows: bfloat16 both
     is the mixed policy's lookup, float32 both corr_mxu_dtype="bfloat16"
     alone. Updates ``err``."""
@@ -2256,7 +2277,9 @@ def bf16_lookup_checks(torch, corr_cuda, corr, sampling, rng, radius, feat,
     cases = [(label, b, h, w, flows, 256, radius)
              for label, b, h, w, flows in lookup_cases(feat) if label != "golden"]
     h, w = feat["sintel"]
-    cases.append(("sintel", 1, h, w, CORR_FLOWS["sintel"], SMALL_C, 3))
+    cases += [("sintel", 1, h, w, CORR_FLOWS["sintel"], SMALL_C, 3),
+              ("chairs", TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8,
+               CORR_FLOWS["chairs"], SMALL_C, 3)]
     try:
         for label, b, h, w, flows, c, r in cases:
             for flow, max_px in flows.items():
@@ -2512,7 +2535,7 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
     # and incoherent flows (bfloat16 maps and windows; the row's numbers
     # are the incoherent input's, as the float32 row's), and on coherent
     # ones at the chairs shape (B=8) and at RAFT-small's lookup (C=128,
-    # r=3); the step at both depths beside cuDNN's bf16 convolutions of the
+    # r=3) at both shapes; the step at both depths beside cuDNN's bf16 convolutions of the
     # same iteration
     rows = []
     corr_by = {}
@@ -2525,7 +2548,9 @@ def mixed_phase(torch, pkg, weights, padder, frames, rng, feat, radius,
             ("chairs coherent", chairs, 256, radius, "coherent",
              CORR_FLOWS["chairs"]["coherent"]),
             ("r=3 coherent", (1, h, w), SMALL_C, 3, "coherent",
-             CORR_FLOWS["sintel"]["coherent"])):
+             CORR_FLOWS["sintel"]["coherent"]),
+            ("chairs r=3 coherent", chairs, SMALL_C, 3, "coherent",
+             CORR_FLOWS["chairs"]["coherent"])):
         f1, pyr, coords = corr_inputs(torch, pkg.sampling, pkg.corr, rng, hh,
                                       ww, c=c, flow=flow_kind, b=b,
                                       max_px=max_px)
@@ -2937,19 +2962,19 @@ def mixed_small_phase(torch, pkg, padder, frames, counters, f32_times):
 #   lie above the second bar: the bar tells the two apart.
 # Under mxu "float32" the kernel's three bf16 passes (the coefficient split
 # into three bfloat16 parts, 24 significant bits) and the plain float32
-# sums differ by the order of the sums. Under "bfloat16" both
-# round the same float32 coefficients to bfloat16, folded in other orders:
-# a coefficient a float32 ulp from a bfloat16 rounding boundary can round
-# the other way (about one in 2^16), which moves the gradients it touches by
-# its bfloat16 ulp, as much as the control moves every gradient. So the
-# largest difference cannot tell the two apart there, and the 2-norm can:
-# a few flipped coefficients among millions barely move it. Read on an H100
-# over this phase's inputs (csrc/corr_tile_bf16.cuh's three bf16 passes):
-# mxu "float32" 3.4e-6 largest, 1.5e-6 2-norm; mxu "bfloat16" up to 1.1e-3
-# largest, 5.7e-5 2-norm; the controls' 2-norm 1.66e-3 at least.
+# sums differ by the order of the sums. Under "bfloat16" both round the
+# same float32 coefficients to bfloat16: the plain version folds each one
+# in the kernel's order and roundings (_BilinearWindows in ops/corr_cuda.py,
+# fold in csrc/corr_tile_bf16.cuh). Folded in another order, a coefficient
+# a float32 ulp from a bfloat16 rounding boundary would round the other way
+# (about one in 2^16) and move the gradients it touches by its bfloat16
+# ulp: on a level few centres reach (rescale 0) one such flip read 1.75e-4
+# in 2-norm. Read on an H100 over this phase's inputs: mxu "float32" 3.5e-6
+# largest, 1.5e-6 2-norm; mxu "bfloat16" 2.3e-6 and 8.0e-7; the controls'
+# 2-norm 1.66e-3 at least.
 CORR_BWD_BF16_BARS = {("bfloat16", "float32"): (1e-4, 1e-5),
-                      ("bfloat16", "bfloat16"): (4e-3, 1e-4),
-                      ("float32", "bfloat16"): (4e-3, 1e-4)}
+                      ("bfloat16", "bfloat16"): (1e-4, 1e-5),
+                      ("float32", "bfloat16"): (1e-4, 1e-5)}
 # Its operand combinations, (maps, mxu_dtype): the policy's training lookup
 # (mixed_precision alone), with corr_mxu_dtype="bfloat16", and that lever
 # alone on float32 maps; with each, the cotangent it gets in training (the
@@ -2999,11 +3024,11 @@ def bf16_corr_bwd_work(torch, f1, pyramid, coords, radius, g):
 def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                         err):
     """The bf16 corr backward against its plain version at the chairs train
-    shape (B=8, 46x62, C=256, r=4) and the Sintel shape (B=1, 55x128, C=256
-    r=4, and C=128 r=3), on coherent and incoherent flows (CORR_FLOWS), and
-    at both Sintel widths with rescale 0 on coherent ones, for each operand
-    combination (BF16_BWD_COMBOS) with its training cotangent, at the
-    chairs shape and with rescale 0 also with the other; on coherent flows
+    shape (B=8, 46x62) and the Sintel shape (B=1, 55x128), each at C=256
+    r=4 and at RAFT-small's C=128 r=3, on coherent and incoherent flows
+    (CORR_FLOWS), and at both Sintel widths with rescale 0 on coherent
+    ones, for each operand combination (BF16_BWD_COMBOS) with its training
+    cotangent, at the chairs shape and with rescale 0 also with the other; on coherent flows
     also with each path forced; each against CORR_BWD_BF16_BARS with its
     control, failing after every case is printed. The shared path's boxes
     must include one of a single 64-pixel chunk, one of more chunks than
@@ -3020,10 +3045,13 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
               radius, CORR_FLOWS["chairs"], True),
              ("sintel", 1, 55, 128, 256, radius, CORR_FLOWS["sintel"], True),
              ("sintel r=3", 1, 55, 128, SMALL_C, 3, CORR_FLOWS["sintel"],
-              True)]
+              True),
+             ("chairs r=3", TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8,
+              SMALL_C, 3, CORR_FLOWS["chairs"], True)]
     cases += [(f"{label} rescale=0", b, h, w, c, r,
                {"coherent": flows["coherent"]}, False)
-              for label, b, h, w, c, r, flows, _ in cases[1:]]
+              for label, b, h, w, c, r, flows, _ in cases
+              if label.startswith("sintel")]
     default = corr_cuda.TILE_BUDGET
     rows = {}
     worst = 0.0
@@ -3064,7 +3092,8 @@ def bf16_corr_bwd_phase(torch, corr_cuda, corr, sampling, rng, radius,
                 bar32, bar_norm = CORR_BWD_BF16_BARS[(maps, mxu)]
                 bar = BF16_EPS if maps == "bfloat16" else bar32
                 gdts = ((maps, "float32" if maps == "bfloat16" else
-                         "bfloat16") if label == "chairs" or not rescale
+                         "bfloat16") if label.startswith("chairs")
+                        or not rescale
                         else (maps,))
                 for gdt in gdts:
                     g = g32.to(getattr(torch, gdt))
@@ -3344,6 +3373,300 @@ def mixed_chain_train_phase(torch, pkg, weights, mixed_train):
              "peak_mib_mixed_chain": peak}, launches, steps, problems)
 
 
+# The small train phase: a synthetic FlyingChairs tree of SMALL_PAIRS pairs
+# at the dataset's 384x512 (58 of them in the training split: 7 batches of
+# 8 an epoch), written from SMALL_TREE_SEED; the loader's rate over
+# LOADER_BATCHES batches after one (the worker pool's start), at the host's
+# default worker count and at LOADER_SWEEP workers; RAFT-small trained at
+# the chairs defaults through train() on it.
+SMALL_PAIRS, CHAIRS_HW, SMALL_TREE_SEED = 64, (384, 512), 9
+LOADER_BATCHES, LOADER_SWEEP = 16, (2, 4)
+
+
+def small_cancelled_by_norm(name):
+    """RAFT-small's biases a norm cancels: fnet's convs but the final
+    projection, each in front of an instance norm (its cnet has none)."""
+    return re.fullmatch(r"fnet\.(conv1|layer\d\.\d\.(conv\d|downsample"
+                        r"\.0))\.bias", name) is not None
+
+
+def loader_pass(pkg, root, tcfg, num_workers=None, probe=False):
+    """``fetch_dataloader(tcfg.stage)`` over ``root`` as ``train`` builds
+    it for ``tcfg`` (``num_workers`` None: the host's default), no step
+    taken: LOADER_BATCHES batches after the first (which starts the worker
+    pool), epochs crossed as they come. The tree's epoch is short, and the
+    prefetcher does not run ahead across an epoch's end, so the rate is
+    given over all the batches and within epochs only (the gaps that end
+    in an epoch's first batch left out), with the share of the time that
+    the epochs' ends cost beyond the within-epoch pace. With ``probe``,
+    also the workers' imports, which must hold neither torch nor JAX (they
+    import what this script imports at its top level, and this script
+    imports torch inside ``main``). Returns ({samples_s, samples_s_in_epoch,
+    epoch_end_share, workers, batches_an_epoch}, the loader's description,
+    the loader, one batch)."""
+    loader = pkg.fetch_dataloader(tcfg.stage, tcfg.batch_size,
+                                  tcfg.image_size, seed=tcfg.seed, root=root,
+                                  num_workers=num_workers)
+    kind = (f"{type(loader).__name__}, {loader.num_workers} workers, "
+            f"{len(loader)} batches an epoch")
+    arrivals, first = [], None      # (time, the first batch of an epoch?)
+    try:
+        while len(arrivals) <= LOADER_BATCHES:
+            for n, batch in enumerate(loader):
+                arrivals.append((time.perf_counter(), n == 0))
+                first = batch if first is None else first
+                if len(arrivals) > LOADER_BATCHES:
+                    break
+        if probe and hasattr(loader, "_ensure_pool"):
+            heavy = loader._ensure_pool().apply(eval, (
+                "sorted({m.split('.')[0] for m in __import__('sys').modules}"
+                " & {'torch', 'jax', 'raft_tpu'})",))
+            print(f"  loader workers' imports of torch, JAX, raft_tpu: "
+                  f"{heavy or 'none'}")
+            if heavy:
+                fail(f"a loader worker imported {heavy}")
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+    if first["image1"].shape != (tcfg.batch_size, *tcfg.image_size, 3):
+        fail(f"the loader's batch has shape {first['image1'].shape}")
+    gaps = [(b - a, starts) for (a, _), (b, starts)
+            in zip(arrivals, arrivals[1:])]
+    inner = [g for g, starts in gaps if not starts]
+    total = arrivals[-1][0] - arrivals[0][0]
+    pace = sum(inner) / len(inner)
+    rate = dict(samples_s=LOADER_BATCHES * tcfg.batch_size / total,
+                samples_s_in_epoch=tcfg.batch_size / pace,
+                epoch_end_share=sum(g - pace for g, starts in gaps
+                                    if starts) / total,
+                workers=loader.num_workers, batches_an_epoch=len(loader))
+    return rate, kind, loader, first
+
+
+def loader_rate(torch, pkg, root, tcfg):
+    """The loader's rate (loader_pass) at the host's default worker count
+    and at LOADER_SWEEP workers; then where a sample's time goes: one
+    sample in this process, read alone (the augmentor off) and read and
+    augmented, and what the parent pays for a batch of such samples (each
+    pickled and unpickled, as the pipe from a worker carries it, then
+    stacked). Returns (the default's rate, the loader's description, one
+    batch, the costs and the sweep)."""
+    rate, kind, loader, first = loader_pass(pkg, root, tcfg, probe=True)
+    sweep = {rate["workers"]: rate}
+    for workers in LOADER_SWEEP:
+        if workers not in sweep:
+            sweep[workers] = loader_pass(pkg, root, tcfg, workers)[0]
+    for workers, r in sorted(sweep.items()):
+        print(f"  {workers} workers: {r['samples_s']:.1f} samples/s over "
+              f"{LOADER_BATCHES} batches, {r['samples_s_in_epoch']:.1f} "
+              f"within epochs of {r['batches_an_epoch']} batches; the "
+              f"epochs' ends {100 * r['epoch_end_share']:.1f}% of the time")
+    data = loader.dataset
+    plain = copy.copy(data)
+    plain.augmentor = None
+    n = tcfg.batch_size
+    costs = {}
+    for what, ds in (("read", plain), ("read and augmented", data)):
+        t0 = time.perf_counter()
+        for i in range(n):
+            sample = ds[i]
+        costs[what] = 1e3 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    samples = [pickle.loads(pickle.dumps(sample, pickle.HIGHEST_PROTOCOL))
+               for _ in range(n)]
+    batch = [np.stack([s[k] for s in samples]) for k in range(len(sample))]
+    parent_ms = 1e3 * (time.perf_counter() - t0)
+    mib = sum(np.asarray(a).nbytes for a in sample) / 2 ** 20
+    print(f"  one sample in one process: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in costs.items())
+          + f"; {mib:.2f} MiB a sample to the parent; a batch of {n} "
+          f"pickled, unpickled and stacked in one process {parent_ms:.1f} "
+          f"ms ({len(batch)} arrays)")
+    return rate, kind, first, dict(
+        sample_ms=costs, sample_mib=mib, parent_batch_ms=parent_ms,
+        loader_sweep={str(k): v for k, v in sorted(sweep.items())})
+
+
+def small_train_full_size(torch, pkg, root, mcfg, label):
+    """RAFT-small (``mcfg``) through ``train(TrainConfig(stage="chairs"),
+    mcfg, dataloader=None, data_root=root, restore_ckpt=weights_small)``:
+    the chairs defaults (B=8, 368x496, iters=12, AdamW, batch statistics),
+    its own input pipeline, TRAIN_WARMUP + TRAIN_TIMED steps, with every
+    launch counter set to 0 just before. Every step must be finite and not
+    skipped, every parameter must move. Returns (state, tcfg, ms per timed
+    step between the steps' ends (loader waits included), launches, every
+    step's loss)."""
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    tcfg = pkg.TrainConfig(stage="chairs", num_steps=steps)
+    ends, logged = [], []
+
+    class Logger:
+        def push(self, metrics, lr):
+            ends.append(time.perf_counter())    # metrics read: step done
+            logged.append((metrics, lr))
+
+    reset_counts(pkg.counters)
+    state = pkg.train(tcfg, mcfg, dataloader=None, data_root=root,
+                      restore_ckpt=SMALL_WEIGHTS, device=DEVICE,
+                      logger=Logger())
+    launches = read_counts(pkg.counters)
+    if state.step != steps or len(logged) != steps:
+        fail(f"small train() [{label}] took {state.step} steps, expected "
+             f"{steps}")
+    ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+    print(f"small train [{label}]:")
+    for n, (m, lr) in enumerate(logged):
+        gap = f", {ms[n - 1]:.1f} ms" if n else ""
+        print(f"  step {n}: loss {m['loss']:.5f}, grad_norm "
+              f"{m['grad_norm']:.4f}, epe {m['epe']:.4f}, lr {lr:.4g}, "
+              f"substituted {m['substituted_samples']:g}{gap}"
+              f"{' (warm-up)' if n < TRAIN_WARMUP else ''}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and not m["skipped_steps"]):
+            fail(f"small train step {n} [{label}] was not finite or was "
+                 f"skipped")
+    start = pkg.load_npz(SMALL_WEIGHTS)
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach().cpu(), start[n])]
+    if still:
+        fail(f"{len(still)} RAFT-small parameters did not change in "
+             f"training [{label}]: {still[:3]}")
+    return (state, tcfg, ms[TRAIN_WARMUP - 1:], launches,
+            [m["loss"] for m, _ in logged])
+
+
+def small_train_phase(torch, pkg):
+    """RAFT-small training and the training data pipeline: the host
+    library of the augmentation built (a silent fallback fails) and the
+    backends the augmentor takes printed; a synthetic FlyingChairs tree
+    written; one RAFT-small train step (B=2, 184x248, iters=4) through the
+    kernels against the plain route, in float32 (STEP_BARS) and under the
+    policy (STEP_BARS_BF16, the float32 model's plain route the control);
+    the loader's rate alone; then ``train()`` on its own pipeline at the
+    chairs defaults, float32 and mixed from the same weights and seed (the
+    process loader's workers take samples as they come free, so the two
+    runs' batches differ and their losses are not compared), ms per step
+    (and the step alone on one batch on the card), 12 launches a step
+    of corr_fwd and corr_bwd (their bf16 forms under the policy) and their
+    path shares, and one step of each profiled. Returns (timings, {label:
+    (launches, steps)}, problems)."""
+    t0 = time.perf_counter()
+    lib = pkg.native_build.build()
+    if not pkg.native.available():
+        fail(f"the augmentation library {lib} built but does not load")
+    backends = pkg.augmentor.backends()
+    print(f"  augmentation library: {os.path.relpath(lib, REPO)}; backends "
+          f"{backends}")
+    if backends["resize"] != "native" or backends["colour"] != "native":
+        fail(f"the augmentor does not take the host library: {backends}")
+    root = tempfile.mkdtemp(prefix="raft_small_train_")
+    timings, runs, problems = {"backends": backends}, {}, []
+    try:
+        pkg.synthetic.write_chairs(root, SMALL_PAIRS, CHAIRS_HW,
+                                   seed=SMALL_TREE_SEED)
+        phase_seconds("small train: library and tree", t0)
+        t0 = time.perf_counter()
+        tcfg = pkg.TrainConfig(batch_size=CMP_B, image_size=CMP_HW,
+                               iters=CMP_ITERS, num_steps=100)
+        batch = synthetic_batch(torch, CMP_B, CMP_HW,
+                                torch.Generator(device=DEVICE).manual_seed(1))
+        state_dict = pkg.load_npz(SMALL_WEIGHTS)
+
+        def make_model(mixed=False):
+            model = pkg.RAFT(pkg.RAFTConfig(small=True, alternate_corr=True,
+                                            mixed_precision=mixed))
+            model.load_state_dict(state_dict)
+            return model
+
+        for label, mixed, bars, forms in (
+                ("small train step", False, STEP_BARS, ("", "")),
+                ("small mixed train step", True, STEP_BARS_BF16,
+                 ("_bf16", "_bf16"))):
+            launches, found = step_against_plain(
+                torch, pkg, label, lambda mixed=mixed: make_model(mixed),
+                tcfg, batch, small_cancelled_by_norm, bars=bars,
+                control=make_model if mixed else None, alternate_corr=True)
+            check_launches(launches, 1, {f"corr_fwd{forms[0]}": CMP_ITERS,
+                                         f"corr_bwd{forms[1]}": CMP_ITERS},
+                           unit="step")
+            problems += found
+        phase_seconds("small train: steps against plain", t0)
+        t0 = time.perf_counter()
+        chairs = pkg.TrainConfig(stage="chairs")
+        rate, kind, loader_batch, costs = loader_rate(torch, pkg, root,
+                                                      chairs)
+        print(f"small train loader: fetch_dataloader('chairs') over "
+              f"{SMALL_PAIRS} synthetic pairs at {CHAIRS_HW[0]}x"
+              f"{CHAIRS_HW[1]} ({kind}), B={chairs.batch_size} crops of "
+              f"{chairs.image_size[0]}x{chairs.image_size[1]}: "
+              f"{rate['samples_s']:.1f} samples/s over {LOADER_BATCHES} "
+              f"batches after the first, {rate['samples_s_in_epoch']:.1f} "
+              f"within epochs, no step taken ({os.cpu_count()} host cores)")
+        timings.update(loader_samples_per_s=rate["samples_s"],
+                       loader_samples_per_s_in_epoch=rate[
+                           "samples_s_in_epoch"],
+                       loader_epoch_end_share=rate["epoch_end_share"],
+                       **costs)
+        phase_seconds("small train: loader", t0)
+        steps = TRAIN_WARMUP + TRAIN_TIMED
+        for label, mcfg, forms in (
+                ("f32", pkg.RAFTConfig(small=True), ""),
+                ("mixed", pkg.RAFTConfig(small=True, mixed_precision=True),
+                 "_bf16")):
+            t0 = time.perf_counter()
+            state, stcfg, step_ms, launches, losses = \
+                small_train_full_size(torch, pkg, root, mcfg, label)
+            shares = print_path_shares(pkg.corr_cuda, f"small train "
+                                       f"{label}: {steps} chairs steps")
+            check_launches(launches, steps,
+                           {f"corr_fwd{forms}": stcfg.iters,
+                            f"corr_bwd{forms}": stcfg.iters}, unit="step")
+            ms = statistics.median(step_ms)
+            # the step alone: the same step function on one batch already on
+            # the card, no loader (time between the metrics' reads)
+            step_fn = pkg.make_train_step(stcfg, alternate_corr=True)
+            dev_batch = {k: torch.from_numpy(v).to(DEVICE)
+                         for k, v in loader_batch.items()}
+            alone = []
+            for _ in range(steps):
+                t_step = time.perf_counter()
+                if step_fn(state, dev_batch)["skipped_steps"]:
+                    fail(f"a small train step [{label}] on the loader's "
+                         f"batch was skipped")
+                alone.append(1e3 * (time.perf_counter() - t_step))
+            alone_ms = statistics.median(alone[TRAIN_WARMUP:])
+            print(f"small train [{label}]: RAFT-small "
+                  f"{'bf16 policy' if mcfg.mixed_precision else 'f32'}, "
+                  f"B={stcfg.batch_size} {stcfg.image_size[0]}x"
+                  f"{stcfg.image_size[1]}, iters={stcfg.iters}, through "
+                  f"train(stage='chairs', "
+                  f"dataloader=None): median {ms:.2f} ms/step over "
+                  f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} (all "
+                  f"{', '.join(f'{t:.2f}' for t in step_ms)}), "
+                  f"{1e3 * stcfg.batch_size / ms:.2f} samples/s; the "
+                  f"loader alone "
+                  f"{rate['samples_s_in_epoch']:.1f} samples/s within "
+                  f"epochs; the step alone on one batch on "
+                  f"the card {alone_ms:.2f} ms (median of {TRAIN_TIMED} "
+                  f"after {TRAIN_WARMUP}), "
+                  f"{1e3 * stcfg.batch_size / alone_ms:.2f} samples/s")
+            profile = profile_train_step(
+                torch, step_fn, state, dev_batch,
+                label=f"small train profile [{label}]")
+            busy = (profile["busy_ms"] / profile["wall_ms"]
+                    if profile else None)
+            timings[label] = {"ms_per_step": ms, "step_ms": step_ms,
+                              "ms_per_step_alone": alone_ms,
+                              "shared_share": shares,
+                              "device_busy_share": busy,
+                              "profile": profile, "losses": losses}
+            runs[label] = (launches, steps)
+            phase_seconds(f"small train: chairs {label}", t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return timings, runs, problems
+
+
 def main():
     import torch
 
@@ -3352,7 +3675,10 @@ def main():
     sys.path.insert(0, REPO)
     from types import SimpleNamespace
 
+    from raft_tpu_torch import native
     from raft_tpu_torch.config import OursConfig, RAFTConfig, TrainConfig
+    from raft_tpu_torch.data import augmentor, synthetic
+    from raft_tpu_torch.data.datasets import fetch_dataloader
     from raft_tpu_torch.evaluate import (ASSETS_DIR, SPARSE_GOLDEN,
                                          FlowPredictor, load_predictor,
                                          use_float32_math, validate_golden,
@@ -3360,6 +3686,7 @@ def main():
     from raft_tpu_torch.models import corr
     from raft_tpu_torch.models.ours import SparseRAFT
     from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.native import build as native_build
     from raft_tpu_torch.ops import (build, conv_tile, corr_cuda, gru_cuda,
                                     motion_cuda, msda, msda_cuda, sampling,
                                     step_cuda)
@@ -3490,12 +3817,12 @@ def main():
     corr_bwd_rel = max(corr_bwd_rel, check_corr_paths(
         torch, corr_cuda, corr, sampling, rng, radius, feat, err))
     # RAFT-small's lookup: r=3, C=128 on the shared path's channel list, at
-    # its golden and Sintel feature shapes (the same as RAFT-large's)
+    # its golden and Sintel feature shapes (the same as RAFT-large's) and
+    # the chairs train shape (B=8) its training runs
     small_radius = RAFTConfig(small=True).radius
     corr_bwd_rel = max(corr_bwd_rel, check_corr_paths(
         torch, corr_cuda, corr, sampling, rng, small_radius, feat, err,
-        c=SMALL_C, cases=[(label, 1, h, w, CORR_FLOWS["sintel"])
-                          for label, (h, w) in feat.items()]))
+        c=SMALL_C, cases=lookup_cases(feat)))
 
     # the sparse family's kernels at its full-width shapes: the fork lookup
     # at the three token levels of 352x480 (B=8, 2 levels, no per-level
@@ -3660,7 +3987,9 @@ def main():
         validate_golden_small=validate_golden_small,
         forward_interpolate=forward_interpolate, build=build, corr=corr,
         sampling=sampling, validate_golden=validate_golden,
-        conv_tile=conv_tile)
+        conv_tile=conv_tile, native=native, native_build=native_build,
+        augmentor=augmentor, synthetic=synthetic,
+        fetch_dataloader=fetch_dataloader)
 
     # -- RAFT-small: goldens, then Sintel-size pairs -----------------------
     t0 = time.perf_counter()
@@ -3679,12 +4008,12 @@ def main():
         corr_cuda, f"serve small: {SERVE_PAIRS} Sintel pairs, r="
         f"{small_radius} C={SMALL_C}", ("fwd",))
     check_launches(small_launches, SERVE_PAIRS, {"corr_fwd": SINTEL_ITERS})
-    # its lookup timed at the Sintel shape (the backward too, for the
-    # small model's training to come)
+    # its lookup and the backward timed at the Sintel shape and the chairs
+    # train shape (B=8) of its training
     small_ct, timed_rel = corr_timings(
         torch, corr_cuda, corr, sampling, rng, small_radius, feat, err,
-        c=SMALL_C, cases=[("sintel", 1, *feat["sintel"],
-                           CORR_FLOWS["sintel"])])
+        c=SMALL_C, cases=[case for case in lookup_cases(feat)
+                          if case[0] != "golden"])
     corr_bwd_rel = max(corr_bwd_rel, timed_rel)
     phase_seconds("serve small", t0)
 
@@ -3789,6 +4118,12 @@ def main():
         mixed_chain_train_phase(torch, pkg, weights, mixed_train)
     problems += chain_problems
     phase_seconds("mixed chain train", t0)
+    # -- RAFT-small training on its own input pipeline ----------------------
+    t0 = time.perf_counter()
+    small_train, small_train_runs, small_problems = small_train_phase(
+        torch, pkg)
+    problems += small_problems
+    phase_seconds("small train", t0)
 
     # -- train SparseRAFT: one step against the plain versions, then at
     #    the fork's training resolution ---------------------------------
@@ -3982,12 +4317,20 @@ def main():
     named = {k["name"]: k for k in kernels}
     for kind in ("fwd", "bwd"):
         named[f"corr_{kind}"]["small_r3"] = {
-            key.split()[1]: {f: v for f, v in row.items() if f != "work"}
+            key: {f: v for f, v in row.items() if f != "work"}
             for key, row in small_ct[kind].items()}
     named["corr_fwd"].update(
         launches_small=small_launches["corr_fwd"],
         launches_per_pair_small=small_launches["corr_fwd"] / SERVE_PAIRS,
         shared_share_small_serve=small_shares["fwd"])
+    # RAFT-small's training (the small train phase): its corr launches in
+    # float32 here, its bf16 forms' in the mixed rows below
+    f32_small, small_steps = small_train_runs["f32"]
+    for name in ("corr_fwd", "corr_bwd"):
+        named[name].update(
+            launches_small_train=f32_small[name],
+            small_train_launches_per_step=f32_small[name] / small_steps)
+    named["corr_bwd"]["small_train"] = small_train
     for name in ("corr_fwd", "update_step"):
         named[name].update(
             launches_early_exit=ee_launches[name],
@@ -4027,13 +4370,15 @@ def main():
                   f"{100 * k['shared_share_sparse'][str(c)]:.1f}% of blocks")
         print(f"{k['name']} SASS, tensor-core TF32 MMAs: "
               f"{k['sass_tf32_mma']}")
-        for flow, row in k["small_r3"].items():
-            print(f"{k['name']} RAFT-small {flow} ({row['shape']}): "
+        for key, row in k["small_r3"].items():
+            plain = (f"plain {row['plain_ms']:.4f} ms; "
+                     if "plain_ms" in row else "")
+            print(f"{k['name']} RAFT-small {key} ({row['shape']}): "
                   f"{row['ms']:.4f} ms a launch, queued {row['ms_q']:.4f} ms,"
-                  f" bound {row['bound_ms']:.4f} ms (3xTF32), {row['bound_ms_f32_simt']:.4f} ms (f32 "
-                  f"SIMT); plain {row['plain_ms']:.4f} ms; shared path on "
-                  f"{100 * row['shared_share']:.1f}% of (tile, level) "
-                  f"blocks")
+                  f" bound {row['bound_ms']:.4f} ms (3xTF32), "
+                  f"{row['bound_ms_f32_simt']:.4f} ms (f32 SIMT); {plain}"
+                  f"shared path on {100 * row['shared_share']:.1f}% of "
+                  f"(tile, level) blocks")
     for name in ("msda_fwd", "msda_bwd"):
         k = named[name]
         print(f"{name} at the encoder shape: {k['ms_encoder']:.4f} ms a "
@@ -4117,6 +4462,12 @@ def main():
           f"plain {main_bwd['plain_ms']:.4f} ms, library none, the float32 "
           f"form corr_bwd queued {main_bwd['f32_form_ms_q']:.4f} ms on the "
           f"same inputs ({main_bwd['shape']})")
+    mixed_small, small_steps = small_train_runs["mixed"]
+    for row in mixed_rows:
+        if row["name"] in ("corr_fwd_bf16", "corr_bwd_bf16"):
+            row.update(launches_small_train=mixed_small[row["name"]],
+                       small_train_launches_per_step=mixed_small[row["name"]]
+                       / small_steps)
     kernels.extend(mixed_rows + chain_rows)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -302,27 +302,25 @@ __device__ void fold(const TileQueries& t, const G* grad, int num_levels, int l,
     }
     const long long first = t.q[qi] * (num_levels * WIN * WIN) + l * WIN * WIN;
     // window (a, b)'s cotangent, scaled
-    auto g = [&](int a, int b) { return staged<R>(gs, grad, qi, first, a * WIN + b) * inv_scale; };
+    auto g = [&](int a, int b) {
+      return __fmul_rn(staged<R>(gs, grad, qi, first, a * WIN + b), inv_scale);
+    };
     const float dx = t.dx[qi], dy = t.dy[qi];
     // U_b at neighbour i's x: window i - 1 with weight dx, window i with
     // 1 - dx, for the window rows b = j - 1 and j; then g2 = U_{j-1} dy +
-    // U_j (1 - dy)
+    // U_j (1 - dy). Each step's rounding is pinned (no contraction the
+    // compiler might choose otherwise), so that the plain version
+    // (_BilinearWindows in ops/corr_cuda.py) folds the same coefficients
+    // bit for bit before both round them to bfloat16; a window past the
+    // (2r+1)^2 reads as 0.
     float lo_prev = 0.f, hi_prev = 0.f;  // windows (i - 1, j - 1) and (i - 1, j)
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       const float lo = j > 0 && i < WIN ? g(i, j - 1) : 0.f;
       const float hi = j < WIN && i < WIN ? g(i, j) : 0.f;
-      float u_prev = 0.f, u_here = 0.f;
-      if (j > 0) {
-        if (i > 0) u_prev += lo_prev * dx;
-        if (i < WIN) u_prev += lo * (1.f - dx);
-      }
-      if (j < WIN) {
-        if (i > 0) u_here += hi_prev * dx;
-        if (i < WIN) u_here += hi * (1.f - dx);
-      }
-      float c = u_prev * dy;
-      c += u_here * (1.f - dy);
+      const float u_prev = __fmaf_rn(lo, 1.f - dx, __fmul_rn(lo_prev, dx));
+      const float u_here = __fmaf_rn(hi, 1.f - dx, __fmul_rn(hi_prev, dx));
+      const float c = __fmaf_rn(u_here, 1.f - dy, __fmul_rn(u_prev, dy));
       c_row[i] = c;
       lo_prev = lo;
       hi_prev = hi;

@@ -8,9 +8,10 @@ concatenation), ``cnet`` splits into the tanh hidden state and the ReLU
 context. In test mode, ``iters - 1`` refinement iterations without the mask
 head and one final iteration with it, whose mask drives the convex 8x
 upsampling (RAFT-small has no mask head and upsamples with ``upflow8``).
-In training (``train=True``) every iteration runs the mask head and
-upsamples, the coordinates are detached at the start of each iteration,
-and the stacked predictions come back for ``sequence_loss``.
+In training (``train=True``) every iteration runs the mask head (none in
+RAFT-small) and upsamples, the coordinates are detached at the start of
+each iteration, and the stacked predictions come back for
+``sequence_loss``.
 
 RAFT-large on the card runs each iteration as one launch of the step
 kernel (``ops/step_cuda.py``) after the lookup, or, with
@@ -23,7 +24,7 @@ path is the kernels of ``ops/corr_cuda.py``.
 
 Mixed precision (``RAFTConfig.mixed_precision``, RAFT-large and
 RAFT-small): the encoders and the update block compute in bfloat16 with
-float32 parameters, in inference and (RAFT-large) in training, on either
+float32 parameters, in inference and in training, on either
 ``update_impl``; the correlation payload follows
 ``RAFTConfig.corr_storage`` (the all-pairs pyramid's storage) and
 ``corr_mxu`` (the on-demand lookup's products, which emits bfloat16

@@ -99,18 +99,63 @@ def windowed_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return corr
 
 
-class _RoundCotangent(torch.autograd.Function):
-    """The identity, whose backward rounds the cotangent to bfloat16 (kept
-    float32): where the TPU kernel's backward at ``mxu_dtype="bfloat16"``
-    casts the cotangent of each dot, ``g2``, before its products."""
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in float32 with one rounding, as CUDA's ``__fmaf_rn``
+    (the product is exact in float64; the sum rounds twice, which differs
+    from one rounding about once in 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+class _BilinearWindows(torch.autograd.Function):
+    """Each window (B, H, W, (2r+1)^2) from the (2r+2)^2 dots of its
+    query's neighbours (B, H, W, 2r+2, 2r+2): the four bilinear corner
+    weights, then 1/sqrt(C). Its backward folds each window's cotangent
+    into the cotangent of each dot in the bf16 backward kernel's order (the
+    TPU kernel's: the cotangent times 1/sqrt(C) first, then the x-side
+    adjoint, then the y side; ``fold`` in ``csrc/corr_tile_bf16.cuh``, one
+    rounding a multiply-add), then rounds it to bfloat16 (kept float32):
+    where the TPU kernel's backward at ``mxu_dtype="bfloat16"`` casts the
+    cotangent of each dot, ``g2``, before its products. Folded in another
+    order, a coefficient a float32 ulp from a bfloat16 rounding boundary
+    would round the other way."""
 
     @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
+    def forward(ctx, dots, inside, dx, dy, C, scale):
+        ctx.save_for_backward(inside, dx, dy)
+        ctx.C, ctx.scale = C, scale
+        dots = dots * inside
+        # dots[..., j, i]: neighbour (x0 + i, y0 + j); window (a, b) reads
+        # its corner (a, b) and the three after it; channels a * (2r+1) + b
+        win = ((1 - dx) * (1 - dy) * dots[..., :-1, :-1]
+               + dx * (1 - dy) * dots[..., :-1, 1:]
+               + (1 - dx) * dy * dots[..., 1:, :-1]
+               + dx * dy * dots[..., 1:, 1:])
+        win = win.transpose(-1, -2).reshape(*dots.shape[:3], -1)
+        if scale:
+            win = win / torch.sqrt(torch.tensor(float(C)))
+        return win
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(torch.bfloat16).float()
+        inside, dx, dy = ctx.saved_tensors
+        d = inside.shape[-1]
+        g = g.float()
+        if ctx.scale:
+            g = g * torch.tensor(1.0 / _scale_div(ctx.C, True),
+                                 dtype=torch.float32)
+        # the windows' cotangents [b (y), a (x)], a zero border around them
+        gp = torch.nn.functional.pad(
+            g.reshape(*g.shape[:3], d - 1, d - 1).transpose(-1, -2),
+            (1, 1, 1, 1))
+        # neighbour (j, i): windows (i - 1, j - 1), (i, j - 1) in the row
+        # above, (i - 1, j), (i, j) in its own
+        lo_prev, lo = gp[..., :-1, :-1], gp[..., :-1, 1:]
+        hi_prev, hi = gp[..., 1:, :-1], gp[..., 1:, 1:]
+        u_prev = _fma(lo, 1 - dx, lo_prev * dx)
+        u_here = _fma(hi, 1 - dx, hi_prev * dx)
+        coef = _fma(u_here, 1 - dy, u_prev * dy)
+        return (coef.to(torch.bfloat16).float() * inside, None, None, None,
+                None, None)
 
 
 def _round_maps(x: torch.Tensor) -> torch.Tensor:
@@ -130,9 +175,9 @@ def windowed_correlation_dots(fmap1, fmap2, coords, radius: int,
     finite or lies 1e8 px or more out), then each window the four bilinear
     corner weights of those dots. Inputs and result as
     ``windowed_correlation``'s, the maps in float32. Each dot's cotangent
-    is rounded to bfloat16 (``_RoundCotangent``): the bf16 forms' plain
-    version, which gets the TPU kernel's gradient at
-    ``mxu_dtype="bfloat16"`` under autograd."""
+    is folded in the kernels' order and rounded to bfloat16
+    (``_BilinearWindows``): the bf16 forms' plain version, which gets the
+    TPU kernel's gradient at ``mxu_dtype="bfloat16"`` under autograd."""
     B, H, W, C = fmap1.shape
     h2, w2 = fmap2.shape[1:3]
     d = 2 * radius + 2
@@ -151,17 +196,8 @@ def windowed_correlation_dots(fmap1, fmap2, coords, radius: int,
                       idx[..., None].expand(-1, -1, C))
     dots = torch.einsum("bqc,bqnc->bqn", fmap1.reshape(B, H * W, C),
                         nb.reshape(B, H * W, d * d, C))
-    dots = _RoundCotangent.apply(dots).reshape(B, H, W, d, d) * inside
-    # dots[..., j, i]: neighbour (x0 + i, y0 + j); window (a, b) reads its
-    # corner (a, b) and the three after it; channels a * (2r+1) + b
-    win = ((1 - dx) * (1 - dy) * dots[..., :-1, :-1]
-           + dx * (1 - dy) * dots[..., :-1, 1:]
-           + (1 - dx) * dy * dots[..., 1:, :-1]
-           + dx * dy * dots[..., 1:, 1:])
-    win = win.transpose(-1, -2).reshape(B, H, W, (d - 1) ** 2)
-    if scale:
-        win = win / torch.sqrt(torch.tensor(float(C)))
-    return win
+    return _BilinearWindows.apply(dots.reshape(B, H, W, d, d),
+                                  inside.to(dots.dtype), dx, dy, C, scale)
 
 
 def windowed_correlation_fused_plain(fmap1, pyramid2, coords, radius: int,

@@ -1,27 +1,29 @@
 """The training loop, the counterpart of ``raft_tpu/train.py``'s ``train``
 and ``resolve_train_corr_engine``.
 
-It trains canonical RAFT-large (``model_family="raft"``, a ``RAFTConfig``)
-or the sparse-keypoint family's ``SparseRAFT`` (``model_family="sparse"``,
-an ``OursConfig``) on batches from an injected
-``dataloader``: any iterable of ``{"image1", "image2", "flow", "valid"}``
-batches, NHWC, as numpy arrays or tensors (``image*`` (B, H, W, 3) in [0,
-255], ``flow`` (B, H, W, 2), ``valid`` (B, H, W)). It is iterated again
-from the start until ``tcfg.num_steps`` steps are done. It runs on the
-CUDA card unless the caller passes ``device="cpu"``, and raises when there
-is neither.
+It trains canonical RAFT, large or small (``model_family="raft"``, a
+``RAFTConfig``; ``small=True`` for RAFT-small), or the sparse-keypoint
+family's ``SparseRAFT`` (``model_family="sparse"``, an ``OursConfig``). Its
+batches come from the stage's input pipeline, as in the JAX package:
+``data.datasets.fetch_dataloader(tcfg.stage, ...)`` over the datasets
+under ``data_root`` (FlyingChairs for ``"chairs"``, FlyingThings3D for
+``"things"``, the Sintel mixture, KITTI), in worker processes or threads
+(``loader``, ``num_workers``). Or from an injected ``dataloader``: any
+iterable of ``{"image1", "image2", "flow", "valid"}`` batches, NHWC, as
+numpy arrays or tensors (``image*`` (B, H, W, 3) in [0, 255], ``flow``
+(B, H, W, 2), ``valid`` (B, H, W)). It is iterated again from the start
+until ``tcfg.num_steps`` steps are done. It runs on the CUDA card unless
+the caller passes ``device="cpu"``, and raises when there is neither.
 
-RAFT-large trains in float32 or under the bf16 mixed-precision policy
+Canonical RAFT trains in float32 or under the bf16 mixed-precision policy
 (``RAFTConfig(mixed_precision=True)``, and the explicit levers
-``corr_mxu_dtype="bfloat16"`` and ``corr_dtype="bfloat16"``), on either
-``update_impl``, as in the JAX package: bfloat16 encoders and update block
-on float32 parameters, float32 flow arithmetic and loss, float32 master
-parameters, AdamW in float32 and no loss scaling.
+``corr_mxu_dtype="bfloat16"`` and ``corr_dtype="bfloat16"``), RAFT-large
+on either ``update_impl``, as in the JAX package: bfloat16 encoders and
+update block on float32 parameters, float32 flow arithmetic and loss,
+float32 master parameters, AdamW in float32 and no loss scaling.
 
 Not ported yet, each refused with ``NotImplementedError`` when asked for:
-RAFT-small (``RAFTConfig(small=True)``, in float32 or bf16), the sparse
-family's bf16, the data pipeline and the ``--stage`` CLI
-(``dataloader=None``),
+the sparse family's bf16, encoder dropout (``RAFTConfig(dropout>0)``),
 checkpoints and resume, the preemption guard, the logger's files and
 TensorBoard (``log_dir``), validation in the loop, spatial sharding and the
 other model families (``keypoint_transformer``, ``dual_query``,
@@ -29,6 +31,9 @@ other model families (``keypoint_transformer``, ``dual_query``,
 
     from raft_tpu_torch.config import RAFTConfig, TrainConfig
     from raft_tpu_torch.train import train
+    state = train(TrainConfig(stage="chairs", num_steps=100),
+                  RAFTConfig(small=True), data_root="datasets",
+                  restore_ckpt="assets/golden/weights_small.npz")
     state = train(TrainConfig(num_steps=100), RAFTConfig(),
                   dataloader=my_batches,
                   restore_ckpt="assets/golden/weights.npz")
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.config import OursConfig, RAFTConfig, TrainConfig
+from raft_tpu_torch.data.datasets import fetch_dataloader
 from raft_tpu_torch.evaluate import resolve_device, use_float32_math
 from raft_tpu_torch.models.ours import SparseRAFT
 from raft_tpu_torch.models.raft import RAFT
@@ -112,13 +118,21 @@ def build_model(model_family: str, mcfg: Union[RAFTConfig, OursConfig]):
 
 def train(tcfg: TrainConfig,
           mcfg: Union[RAFTConfig, OursConfig] = RAFTConfig(), *,
-          dataloader=None, restore_ckpt: Optional[str] = None,
+          data_root: Optional[str] = None, dataloader=None,
+          restore_ckpt: Optional[str] = None,
           device=None, corr_impl: str = "auto", update_impl: str = "step",
           logger=None, resume: bool = False,
           validation: Sequence[str] = (), ckpt_dir: Optional[str] = None,
           log_dir: Optional[str] = None,
-          spatial_shards: int = 1) -> TrainState:
-    """Run one training stage on ``dataloader``; returns the final state.
+          spatial_shards: int = 1, loader: str = "auto",
+          num_workers: Optional[int] = None) -> TrainState:
+    """Run one training stage; returns the final state.
+
+    ``dataloader=None`` builds the stage's pipeline, as the JAX ``train``
+    does: ``fetch_dataloader(tcfg.stage, tcfg.batch_size,
+    tcfg.image_size, seed=tcfg.seed, root=data_root, loader=loader,
+    num_workers=num_workers)``; numpy's global generator is seeded from
+    ``tcfg.seed`` either way.
 
     ``mcfg`` is the model's config: a ``RAFTConfig`` for
     ``tcfg.model_family="raft"``, an ``OursConfig`` for ``"sparse"``
@@ -131,18 +145,18 @@ def train(tcfg: TrainConfig,
     Batch norm trains on the chairs stage and is frozen on the others, as
     in the reference. ``logger``, if given, is called as
     ``logger.push(metrics, lr=...)`` after every step, the interface of
-    ``raft_tpu.utils.logger.TrainLogger``. After
+    ``raft_tpu.utils.logger.TrainLogger``; a loader that keeps
+    ``stats`` (``fetch_dataloader``'s) adds ``substituted_samples``, the
+    samples it replaced since the last step. After
     ``tcfg.max_consecutive_skips`` non-finite steps in a row it raises
     ``TrainingDiverged``.
     """
     _refuse(**{
-        "the data pipeline (pass dataloader=)": dataloader is None,
         "resume": resume, "validation in the loop": bool(validation),
         "checkpointing (ckpt_dir)": ckpt_dir is not None,
         "async checkpointing": tcfg.async_checkpointing,
         "the training logger (log_dir)": log_dir is not None,
-        "spatial sharding": spatial_shards != 1,
-        "RAFT-small training": getattr(mcfg, "small", False)})
+        "spatial sharding": spatial_shards != 1})
     if update_impl not in UPDATE_IMPLS:
         raise ValueError(f"update_impl must be one of {UPDATE_IMPLS}, "
                          f"got {update_impl!r}")
@@ -156,6 +170,7 @@ def train(tcfg: TrainConfig,
     if device.type == "cuda":
         use_float32_math()
     torch.manual_seed(tcfg.seed)
+    np.random.seed(tcfg.seed)
 
     if sparse:
         model.init_weights(torch.Generator().manual_seed(tcfg.seed))
@@ -169,6 +184,25 @@ def train(tcfg: TrainConfig,
             device, corr_impl, mcfg),
         update_impl=update_impl)
 
+    built = dataloader is None
+    if built:
+        dataloader = fetch_dataloader(
+            tcfg.stage, tcfg.batch_size, tcfg.image_size, seed=tcfg.seed,
+            root=data_root, loader=loader, num_workers=num_workers)
+    try:
+        _loop(tcfg, state, step_fn, dataloader, device, logger)
+    finally:
+        if built and hasattr(dataloader, "close"):
+            dataloader.close()          # the worker processes it started
+    return state
+
+
+def _loop(tcfg, state, step_fn, dataloader, device, logger) -> None:
+    """Step ``state`` over ``dataloader``'s batches, epoch after epoch,
+    until ``tcfg.num_steps``."""
+    loader_stats = getattr(dataloader, "stats", None)
+    substituted = (loader_stats.substituted_samples
+                   if loader_stats is not None else 0)
     consecutive_skips = 0
     while state.step < tcfg.num_steps:
         seen = 0
@@ -176,6 +210,10 @@ def train(tcfg: TrainConfig,
             lr = state.scheduler.get_last_lr()[0]
             metrics = step_fn(state, _to_device(batch, device))
             seen += 1
+            if loader_stats is not None:
+                metrics["substituted_samples"] = float(
+                    loader_stats.substituted_samples - substituted)
+                substituted = loader_stats.substituted_samples
             if logger is not None:
                 logger.push(metrics, lr=lr)
             consecutive_skips = (consecutive_skips + 1
@@ -189,4 +227,3 @@ def train(tcfg: TrainConfig,
                 break
         if not seen:
             raise ValueError("the dataloader yielded no batch")
-    return state

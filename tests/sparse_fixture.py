@@ -141,15 +141,16 @@ def flat_train_state(model, variables, tx):
     from raft_tpu.parallel.train_step import RAFTTrainState
 
     params, unravel_p = ravel_pytree(variables["params"])
-    stats, unravel_s = ravel_pytree(variables["batch_stats"])
+    stats, unravel_s = ravel_pytree(variables.get("batch_stats", {}))
 
     def apply_fn(v, *args, **kwargs):
         out, mutated = model.apply(
             {"params": unravel_p(v["params"]["flat"]),
              "batch_stats": unravel_s(v["batch_stats"]["flat"])},
             *args, **kwargs)
+        # a model without batch norm (RAFT-small) mutates no statistics
         return out, {"batch_stats": {
-            "flat": ravel_pytree(mutated["batch_stats"])[0]}}
+            "flat": ravel_pytree(mutated.get("batch_stats", {}))[0]}}
 
     def unflatten(state):
         return jax.tree_util.tree_map(np.asarray, {

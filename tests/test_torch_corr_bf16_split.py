@@ -16,7 +16,11 @@ These tests hold the three-part split to every bit of a float32, the
 emulated products to chip_smoke's ``CORR_BWD_BF16_BARS`` for bfloat16 maps
 at mxu "float32" against float64, and below the two-TF32-part products'
 error; one bfloat16 pass (mxu "bfloat16") is the control that lies above
-the 2-norm bar. The card's own readings are chip_smoke's.
+the 2-norm bar. At mxu "bfloat16" the kernel rounds each folded
+coefficient to bfloat16, and the plain version folds it in the same order
+(``_BilinearWindows``), so that both round the same float32 value; the
+last test holds that fold to an exact one. The card's own readings are
+chip_smoke's.
 """
 
 import numpy as np
@@ -24,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from raft_tpu_torch.ops import conv_pack
+from raft_tpu_torch.ops import conv_pack, corr_cuda
 
 CHUNK = 64   # box pixels per chunk, and queries per tile
 BARS = chip_smoke.CORR_BWD_BF16_BARS[("bfloat16", "float32")]
@@ -124,3 +128,41 @@ def test_one_bf16_pass_is_the_control():
     f2 = torch.from_numpy(rng.standard_normal((320, 256)).astype(np.float32)).bfloat16()
     _, norm = rel(bf16_passes(g, f2, 1), g.double() @ f2.double())
     assert norm > BARS[1], norm
+
+
+@pytest.mark.parametrize("scale", [True, False])
+def test_plain_fold_is_the_exact_fold_rounded(scale):
+    """The plain version's cotangent of each neighbour's dot at mxu
+    "bfloat16" (``_BilinearWindows``: the float32 fold in the kernel's
+    order, then bfloat16) against the same fold in float64 rounded once to
+    bfloat16, at r=3 with neighbours off the level: equal but for the odd
+    coefficient whose float32 fold lies across a rounding boundary from the
+    exact one, and there one bfloat16 ulp apart; zero off the level."""
+    rng = np.random.default_rng(3)
+    b, h, w, r, c = 2, 5, 6, 3, 128
+    d = 2 * r + 2
+    dots = torch.zeros(b, h, w, d, d, requires_grad=True)
+    inside = torch.from_numpy(rng.random((b, h, w, d, d)) > 0.2).float()
+    dx, dy = (torch.from_numpy(rng.random((b, h, w, 1, 1)).astype(np.float32))
+              for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(
+        (b, h, w, (d - 1) ** 2)).astype(np.float32))
+    corr_cuda._BilinearWindows.apply(dots, inside, dx, dy, c,
+                                     scale).backward(g)
+    dots64 = torch.zeros(b, h, w, d, d, dtype=torch.float64,
+                         requires_grad=True)
+    x, y = dx.double(), dy.double()
+    win = ((1 - x) * (1 - y) * dots64[..., :-1, :-1]
+           + x * (1 - y) * dots64[..., :-1, 1:]
+           + (1 - x) * y * dots64[..., 1:, :-1]
+           + x * y * dots64[..., 1:, 1:]).transpose(-1, -2).reshape(
+               b, h, w, -1)
+    inv = 1 / corr_cuda._scale_div(c, scale) if scale else 1.0
+    win.backward(g.double() * np.float32(inv))
+    want = dots64.grad.float().bfloat16().float() * inside
+    got = dots.grad
+    assert torch.equal(got == 0, want == 0)
+    ulp = torch.where(want != 0, want.abs() * 2.0 ** -7, 1.0)
+    off = (got - want).abs()
+    assert float((off / ulp).max()) <= 1.0
+    assert float((off > 0).double().mean()) < 0.01

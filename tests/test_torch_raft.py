@@ -300,7 +300,7 @@ def test_iters_and_unported_configs_raise(port_model, frames):
     assert small.update_block.encoder.convc1.in_channels == 4 * 7 * 7
     # the bf16 policy builds and returns float32 flows on both update_impls
     # (on the CPU both are the same plain versions), RAFT-small under it
-    # too; training RAFT-small under it refuses
+    # too; RAFT-small trains under it (its block takes no update_impl)
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train import train
 
@@ -318,10 +318,14 @@ def test_iters_and_unported_configs_raise(port_model, frames):
         flows = small_mixed.eval()(_t(frames[0]), _t(frames[1]), iters=1)
         assert all(f.dtype == torch.float32 and bool(torch.isfinite(f).all())
                    for f in flows)
-    with pytest.raises(NotImplementedError, match="RAFT-small"):
-        train(TrainConfig(num_steps=1),
-              RAFTConfig(small=True, mixed_precision=True), dataloader=[],
-              device="cpu", update_impl="chain")
+    batch = {"image1": frames[0], "image2": frames[1],
+             "flow": np.zeros((1, 64, 96, 2), np.float32),
+             "valid": np.ones((1, 64, 96), np.float32)}
+    state = train(TrainConfig(num_steps=1, iters=1, batch_size=1,
+                              image_size=(64, 96)),
+                  RAFTConfig(small=True, mixed_precision=True),
+                  dataloader=[batch], device="cpu", update_impl="chain")
+    assert state.step == 1
     with pytest.raises(ValueError):
         RAFT(RAFTConfig(normalized_coords=True))
 

@@ -298,17 +298,42 @@ def test_unreadable_checkpoints_are_refused(tmp_path):
 
 
 def test_small_training_and_bf16_are_refused():
-    """RAFT-small training is refused, in float32 and under the bf16
-    policy; the policy itself builds RAFT-small (float32 parameters, a
-    bfloat16 compute dtype) for inference."""
+    """RAFT-small trains, in float32 and under the bf16 policy (one step
+    on an injected batch: finite, not skipped); what stays unported is
+    still refused: encoder dropout, checkpoints, validation in the loop.
+    The policy builds RAFT-small with float32 parameters and a bfloat16
+    compute dtype."""
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train import train
 
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (1, 32, 48, 3)).astype(np.float32)
+    batch = {"image1": img, "image2": np.roll(img, (1, -2), axis=(1, 2)),
+             "flow": np.zeros((1, 32, 48, 2), np.float32),
+             "valid": np.ones((1, 32, 48), np.float32)}
+    tcfg = TrainConfig(num_steps=1, iters=2, batch_size=1,
+                       image_size=(32, 48))
     for mixed in (False, True):
-        with pytest.raises(NotImplementedError, match="RAFT-small training"):
-            train(TrainConfig(num_steps=1),
-                  RAFTConfig(small=True, mixed_precision=mixed),
-                  dataloader=[], device="cpu")
+        logged = []
+
+        class Logger:
+            def push(self, metrics, lr):
+                logged.append(metrics)
+
+        state = train(tcfg, RAFTConfig(small=True, mixed_precision=mixed),
+                      dataloader=[batch], restore_ckpt=WEIGHTS,
+                      device="cpu", logger=Logger())
+        assert state.step == 1 and len(logged) == 1
+        assert np.isfinite(logged[0]["loss"])
+        assert logged[0]["skipped_steps"] == 0.0
+    with pytest.raises(NotImplementedError, match="dropout"):
+        train(tcfg, RAFTConfig(small=True, dropout=0.1), dataloader=[batch],
+              device="cpu")
+    for refused, match in ((dict(ckpt_dir="ckpt"), "checkpointing"),
+                           (dict(validation=("chairs",)), "validation")):
+        with pytest.raises(NotImplementedError, match=match):
+            train(tcfg, RAFTConfig(small=True), dataloader=[batch],
+                  device="cpu", **refused)
     model = RAFT(RAFTConfig(small=True, mixed_precision=True))
     assert model.compute_dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -362,13 +362,16 @@ def test_train_runs_num_steps_on_an_injected_loader(weights, monkeypatch):
     assert int(state.model.cnet.norm1.num_batches_tracked) == 3
 
 
-def test_train_corr_engine_and_refusals(monkeypatch):
+def test_train_corr_engine_and_refusals(monkeypatch, tmp_path):
     """The engine ``train`` picks, and the parts of the JAX ``train`` that
     are not ported raising ``NotImplementedError`` rather than being
-    ignored; without a card and without ``device='cpu'`` it raises."""
+    ignored; ``dataloader=None`` builds the stage's pipeline, which over a
+    directory without datasets yields nothing, and ``train`` says so;
+    without a card and without ``device='cpu'`` it raises."""
     pick = train_mod.resolve_train_corr_engine
     cuda_dev, cpu = torch.device("cuda"), torch.device("cpu")
     assert pick(cuda_dev, "auto", RAFTConfig()) is True
+    assert pick(cuda_dev, "auto", RAFTConfig(small=True)) is True
     assert pick(cpu, "auto", RAFTConfig()) is False
     assert pick(cpu, "auto", RAFTConfig(alternate_corr=True)) is True
     assert pick(cuda_dev, "fixed", RAFTConfig()) is False
@@ -378,7 +381,10 @@ def test_train_corr_engine_and_refusals(monkeypatch):
 
     tcfg = TrainConfig(num_steps=1)
     loader = SyntheticLoader()
-    for kw in ({"dataloader": None}, {"resume": True},
+    with pytest.raises(ValueError, match="no batch"):
+        train_mod.train(tcfg, dataloader=None, data_root=str(tmp_path),
+                        loader="thread", device="cpu")
+    for kw in ({"resume": True},
                {"validation": ["sintel"]}, {"ckpt_dir": "ckpt"},
                {"log_dir": "runs"}, {"spatial_shards": 2}):
         args = {"dataloader": loader, "device": "cpu", **kw}
